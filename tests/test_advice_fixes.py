@@ -18,20 +18,20 @@ import pytest
 from jax.sharding import Mesh
 
 import jax
-import tiflash_tpu.core.dtypes as dt
-from tiflash_tpu.core.block import Block, column_from_numpy
-from tiflash_tpu.expr.nodes import Call, col, lit
-from tiflash_tpu.expr.compile import evaluate_expr
-from tiflash_tpu.mpp.runner import (
+import tiflash_jax.core.dtypes as dt
+from tiflash_jax.core.block import Block, column_from_numpy
+from tiflash_jax.expr.nodes import Call, col, lit
+from tiflash_jax.expr.compile import evaluate_expr
+from tiflash_jax.mpp.runner import (
     ExchangeConfig,
     collect_result,
     compile_distributed,
     shard_catalog_blocks,
 )
-from tiflash_tpu.ops import join as J
-from tiflash_tpu.plan import nodes as P
-from tiflash_tpu.plan.distribute import shuffle_join
-from tiflash_tpu.testing import oracle as O
+from tiflash_jax.ops import join as J
+from tiflash_jax.plan import nodes as P
+from tiflash_jax.plan.distribute import shuffle_join
+from tiflash_jax.testing import oracle as O
 
 
 def _string_block(name, values, extra=None):
@@ -83,7 +83,7 @@ def test_shuffle_join_string_keys_cross_dictionary(mesh):
 
 
 def test_string_hash_is_dictionary_independent():
-    from tiflash_tpu.ops.hashing import hash_columns
+    from tiflash_jax.ops.hashing import hash_columns
 
     a = column_from_numpy(["apple", "pear", "plum"], dt.STRING)
     b = column_from_numpy(["apple", "zebra", "pear", "plum", "kiwi"], dt.STRING)
@@ -185,7 +185,7 @@ def test_order_compare_across_dictionaries():
 
 
 def test_false_unique_build_retries_to_correct_result():
-    from tiflash_tpu.runtime.executor import QueryRunner
+    from tiflash_jax.runtime.executor import QueryRunner
 
     lt = {"lk": [1, 2, 3], "lv": [10, 20, 30]}
     rt = {"rk": [1, 1, 2], "rv": [100, 101, 200]}  # duplicate build key!
@@ -205,7 +205,7 @@ def test_false_unique_build_retries_to_correct_result():
 
 
 def test_true_unique_build_no_retry():
-    from tiflash_tpu.runtime.executor import QueryRunner
+    from tiflash_jax.runtime.executor import QueryRunner
 
     lt = {"lk": [1, 2, 3], "lv": [10, 20, 30]}
     rt = {"rk": [1, 2], "rv": [100, 200]}
@@ -229,7 +229,7 @@ def test_true_unique_build_no_retry():
 def test_corrupt_cache_rejected(tmp_path):
     import struct
 
-    from tiflash_tpu.storage import native_loader
+    from tiflash_jax.storage import native_loader
 
     try:
         lib = native_loader.get_lib()
@@ -260,7 +260,7 @@ def test_corrupt_cache_rejected(tmp_path):
     assert not lib.tfl_load_cache(str(p3).encode())
 
     # round trip of a GOOD table still works
-    from tiflash_tpu.core.block import column_from_numpy
+    from tiflash_jax.core.block import column_from_numpy
 
     good = tmp_path / "good.tfc"
     cols = {"a": column_from_numpy([1, 2, 3], dt.INT64)}
@@ -276,12 +276,12 @@ def test_operator_threshold_is_operator_local():
     not the whole plan's."""
     import numpy as np
 
-    import tiflash_tpu.core.dtypes as dt
-    from tiflash_tpu.core.block import Block, column_from_numpy
-    from tiflash_tpu.expr.nodes import col, lit
-    from tiflash_tpu.ops.sort import SortKey
-    from tiflash_tpu.plan import nodes as P
-    from tiflash_tpu.runtime.memory import (estimate_operator_bytes,
+    import tiflash_jax.core.dtypes as dt
+    from tiflash_jax.core.block import Block, column_from_numpy
+    from tiflash_jax.expr.nodes import col, lit
+    from tiflash_jax.ops.sort import SortKey
+    from tiflash_jax.plan import nodes as P
+    from tiflash_jax.runtime.memory import (estimate_operator_bytes,
                                             estimate_plan_bytes)
 
     n = 100_000
@@ -308,12 +308,12 @@ def test_mesh_threshold_notice_logged():
     import numpy as np
 
     import jax
-    import tiflash_tpu.core.dtypes as dt
-    from tiflash_tpu.core.block import Block, column_from_numpy
-    from tiflash_tpu.ops.aggregate import AggDesc
-    from tiflash_tpu.plan import nodes as P
-    from tiflash_tpu.runtime.logging import RING
-    from tiflash_tpu.runtime.settings import Settings
+    import tiflash_jax.core.dtypes as dt
+    from tiflash_jax.core.block import Block, column_from_numpy
+    from tiflash_jax.ops.aggregate import AggDesc
+    from tiflash_jax.plan import nodes as P
+    from tiflash_jax.runtime.logging import RING
+    from tiflash_jax.runtime.settings import Settings
 
     devs = jax.devices()
     mesh = jax.sharding.Mesh(np.array(devs), ("d",))
@@ -324,7 +324,7 @@ def test_mesh_threshold_notice_logged():
     })
     plan = P.Aggregation(["g"], [AggDesc("sum", "v", "s")], P.TableScan("T"))
     s = Settings(max_bytes_before_external_group_by=1)
-    from tiflash_tpu.runtime.executor import run_query
+    from tiflash_jax.runtime.executor import run_query
 
     out, _ = run_query(plan, {"T": blk}, mesh=mesh, settings=s)
     assert int(np.asarray(out.sel_mask()).sum()) == 4

@@ -7,9 +7,9 @@ inputs across key-type shapes, both aggregation methods exercised.
 import numpy as np
 import pytest
 
-import tiflash_tpu.core.dtypes as dt
-from tiflash_tpu.ops.aggregate import AggDesc, hash_aggregate, aggregate_sort, aggregate_direct, pack_keys_direct
-from tiflash_tpu.testing import oracle as O
+import tiflash_jax.core.dtypes as dt
+from tiflash_jax.ops.aggregate import AggDesc, hash_aggregate, aggregate_sort, aggregate_direct, pack_keys_direct
+from tiflash_jax.testing import oracle as O
 
 
 def run_agg(schema, keys, aggs, n=500, null_prob=0.15, seed=0, force=None, sel_expr=None):
@@ -135,21 +135,37 @@ def test_agg_under_jit():
     assert int(ng) == len(want["k"])
 
 
-def test_direct_kernel_interpret_parity():
-    """Pallas direct-sum kernel (interpret mode) vs oracle: sums/counts/avg
-    over decimal + nullable columns, with a selection mask."""
+def _direct_block(rng, domain, n):
+    """A block whose string key takes every one of ``domain`` values, with
+    a nullable decimal and int64 values near +-2**52."""
+    from tiflash_jax.core.block import Block, column_from_numpy
+
+    keys = [f"k{i:05d}" for i in range(domain)]
+    k = keys + [keys[i] for i in rng.integers(0, domain, n - domain)]
+    v = rng.integers(-500, 500, n)
+    v_ok = rng.random(n) > 0.15
+    w = rng.integers(-(2**52), 2**52, n)
+    block = Block.from_dict({
+        "k": column_from_numpy(k, dt.STRING),
+        "v": column_from_numpy(v, dt.Decimal(12, 2, nullable=True),
+                               validity=v_ok),
+        "w": column_from_numpy(w, dt.INT64),
+    })
+    return O.block_to_pytable(block), block
+
+
+@pytest.mark.parametrize("domain", [65, 256, 4096])
+def test_direct_segment_path_parity(domain):
+    """Direct method above the masked limit (the segment path) vs oracle:
+    sums/counts/avg over decimal + nullable columns and int64 values near
+    +-2**52, with a selection mask."""
     import jax.numpy as jnp
-    from tiflash_tpu.ops.aggregate import aggregate_direct, pack_keys_direct
+    from tiflash_jax.ops.aggregate import MASKED_DOMAIN_LIMIT
 
     rng = np.random.default_rng(9)
-    schema = {
-        "k": dt.STRING,
-        "v": dt.Decimal(12, 2, nullable=True),
-        "w": dt.INT64,
-    }
-    table = O.random_pytable(rng, 1000, schema, int_range=(-500, 500))
-    block = O.pytable_to_block(table, schema)
-    mask = np.asarray(rng.random(1000) < 0.7)
+    n = 3 * domain
+    table, block = _direct_block(rng, domain, n)
+    mask = np.asarray(rng.random(n) < 0.7)
     block = block.and_sel(jnp.asarray(mask))
     aggs = [
         AggDesc("sum", "v", "sv"),
@@ -159,33 +175,33 @@ def test_direct_kernel_interpret_parity():
         AggDesc("avg", "v", "av"),
     ]
     packed = pack_keys_direct([block["k"]])
-    res = aggregate_direct(block, ["k"], aggs, packed, use_kernel=True,
-                           interpret=True)
+    assert packed[1] == domain > MASKED_DOMAIN_LIMIT
+    res = aggregate_direct(block, ["k"], aggs, packed)
     got = O.block_to_pytable(res.block)
     ftable = {k: [x for x, m in zip(v, mask) if m] for k, v in table.items()}
     want = O.o_aggregate(ftable, ["k"], [(a.func, a.arg, a.name) for a in aggs])
     O.assert_tables_equal(got, want)
 
 
-def test_direct_kernel_negative_and_large_values():
-    """Two's-complement limb reconstruction must be exact for negatives and
-    large magnitudes."""
+@pytest.mark.parametrize("domain", [65, 256, 4096])
+def test_direct_segment_path_exact_large_values(domain):
+    """Segment-path sums are exact int64 for negatives and magnitudes near
+    2**52, in every slot of the domain."""
     import jax.numpy as jnp
-    from tiflash_tpu.ops.pallas.direct_agg import direct_sums
 
     rng = np.random.default_rng(10)
-    n = 3000
-    slots = jnp.asarray(rng.integers(0, 5, n).astype(np.int32))
-    vals = rng.integers(-(2**52), 2**52, n).astype(np.int64)
-    live = jnp.ones(n, dtype=bool)
-    sums, counts, nn = direct_sums(
-        slots, [jnp.asarray(vals)], [None], live, 5, interpret=True
-    )
-    expect = [int(vals[np.asarray(slots) == s].sum()) for s in range(5)]
-    assert np.asarray(sums)[:, 0].tolist() == expect
-    assert np.asarray(counts).tolist() == [
-        int((np.asarray(slots) == s).sum()) for s in range(5)
-    ]
+    n = 8 * domain
+    _, block = _direct_block(rng, domain, n)
+    res = aggregate_direct(block, ["k"], [AggDesc("sum", "w", "s"),
+                                          AggDesc("count", None, "c")],
+                           pack_keys_direct([block["k"]]))
+    slots = np.asarray(block["k"].data)
+    w = np.asarray(block["w"].data)
+    want_s = [sum(int(x) for x in w[slots == s]) for s in range(domain)]
+    want_c = [int((slots == s).sum()) for s in range(domain)]
+    assert np.asarray(res.block["s"].data).tolist() == want_s
+    assert np.asarray(res.block["c"].data).tolist() == want_c
+    assert int(res.num_groups) == domain
 
 
 def test_count_distinct_and_filter_combinator():
@@ -222,9 +238,9 @@ def test_count_distinct_distributed():
     import jax
     from jax.sharding import Mesh
 
-    from tiflash_tpu.plan import nodes as P
-    from tiflash_tpu.plan.distribute import split_aggregation
-    from tiflash_tpu.runtime.executor import run_query
+    from tiflash_jax.plan import nodes as P
+    from tiflash_jax.plan.distribute import split_aggregation
+    from tiflash_jax.runtime.executor import run_query
 
     mesh = Mesh(np.array(jax.devices()[:8]), ("d",))
     rng = np.random.default_rng(13)
@@ -328,7 +344,7 @@ def run_stream(schema, keys, aggs, n=500, null_prob=0.15, seed=3, sel_frac=None)
 
     import jax.numpy as jnp
 
-    from tiflash_tpu.ops.aggregate import aggregate_stream
+    from tiflash_jax.ops.aggregate import aggregate_stream
 
     rng = np.random.default_rng(seed)
     table = O.random_pytable(rng, n, schema, null_prob=null_prob)
@@ -397,7 +413,7 @@ def test_stream_agg_dispatch_via_clustered_by():
     """hash_aggregate picks StreamAgg when keys match the clustering."""
     import dataclasses as _dc
 
-    from tiflash_tpu.ops import aggregate as agg_mod
+    from tiflash_jax.ops import aggregate as agg_mod
 
     rng = np.random.default_rng(14)
     schema = {"k": dt.INT64, "v": dt.INT64}
@@ -429,7 +445,7 @@ def test_clustering_metadata_propagation():
 
     import jax.numpy as jnp
 
-    from tiflash_tpu.core.block import Block, Column
+    from tiflash_jax.core.block import Block, Column
 
     b = Block.from_dict({
         "a": Column(jnp.arange(6, dtype=jnp.int64), None, dt.INT64),
@@ -516,7 +532,7 @@ def test_group_concat_non_nullable_distinct():
 def test_group_concat_all_null_group_is_null():
     import jax.numpy as jnp
 
-    from tiflash_tpu.core.block import Block, Column
+    from tiflash_jax.core.block import Block, Column
 
     b = Block.from_dict({
         "k": Column(jnp.asarray([0, 0, 1, 1], dtype=jnp.int64), None, dt.INT64),
@@ -531,10 +547,10 @@ def test_group_concat_all_null_group_is_null():
 
 def test_group_concat_through_topn():
     """gc columns survive a downstream TopN permute (2-D Block.take)."""
-    from tiflash_tpu.plan import nodes as P
-    from tiflash_tpu.plan.compiler import compile_fragment
-    from tiflash_tpu.ops.sort import SortKey
-    from tiflash_tpu.storage.catalog import Catalog
+    from tiflash_jax.plan import nodes as P
+    from tiflash_jax.plan.compiler import compile_fragment
+    from tiflash_jax.ops.sort import SortKey
+    from tiflash_jax.storage.catalog import Catalog
 
     schema = {"k": dt.INT32, "s": dt.STRING, "v": dt.INT64}
     rng = np.random.default_rng(24)
@@ -586,7 +602,7 @@ def test_bit_aggs_dispatch_large_direct_domain():
 
 
 def test_bit_aggs_scalar():
-    from tiflash_tpu.ops.aggregate import aggregate_scalar
+    from tiflash_jax.ops.aggregate import aggregate_scalar
 
     rng = np.random.default_rng(31)
     schema = {"v": dt.INT64.with_nullable(True)}
@@ -629,9 +645,9 @@ def test_bit_aggs_distributed():
     import jax
     from jax.sharding import Mesh
 
-    from tiflash_tpu.plan import nodes as P
-    from tiflash_tpu.plan.distribute import split_aggregation
-    from tiflash_tpu.runtime.executor import run_query
+    from tiflash_jax.plan import nodes as P
+    from tiflash_jax.plan.distribute import split_aggregation
+    from tiflash_jax.runtime.executor import run_query
 
     mesh = Mesh(np.array(jax.devices()[:8]), ("d",))
     rng = np.random.default_rng(41)

@@ -6,12 +6,12 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh
 
-from tiflash_tpu.bench.tpch_queries import q1_plan, q3_plan, q6_plan, sort_topn_plan
-from tiflash_tpu.plan.auto import AutoPlanConfig, distribute_plan
-from tiflash_tpu.runtime.executor import run_query
-from tiflash_tpu.storage.tpch import generate_tpch
-from tiflash_tpu.testing import oracle as O
-from tiflash_tpu.testing.plan_oracle import execute_plan_oracle
+from tiflash_jax.bench.tpch_queries import q1_plan, q3_plan, q6_plan, sort_topn_plan
+from tiflash_jax.plan.auto import AutoPlanConfig, distribute_plan
+from tiflash_jax.runtime.executor import run_query
+from tiflash_jax.storage.tpch import generate_tpch
+from tiflash_jax.testing import oracle as O
+from tiflash_jax.testing.plan_oracle import execute_plan_oracle
 
 
 @pytest.fixture(scope="module")
@@ -58,9 +58,9 @@ def test_sampled_selectivity_flips_broadcast():
     """A selective filter on the build side must enable broadcast when
     table data is provided for sampling; without sampling the raw row
     count forces a shuffle (VERDICT r1 weak 10)."""
-    import tiflash_tpu.core.dtypes as dt
-    from tiflash_tpu.expr.nodes import col, lit
-    from tiflash_tpu.plan import nodes as P
+    import tiflash_jax.core.dtypes as dt
+    from tiflash_jax.expr.nodes import col, lit
+    from tiflash_jax.plan import nodes as P
 
     rng = np.random.default_rng(4)
     schema = {"bk": dt.INT32, "bv": dt.INT64}

@@ -6,13 +6,13 @@ Interpreters/Aggregator.cpp:1230 (convertToTwoLevel)."""
 
 import numpy as np
 
-import tiflash_tpu.core.dtypes as dt
-from tiflash_tpu.core.block import Block, column_from_numpy
-from tiflash_tpu.expr.nodes import col, lit
-from tiflash_tpu.ops.aggregate import AggDesc
-from tiflash_tpu.plan import nodes as P
-from tiflash_tpu.plan.auto import autosize_plan, _sample_ndv
-from tiflash_tpu.testing import oracle as O
+import tiflash_jax.core.dtypes as dt
+from tiflash_jax.core.block import Block, column_from_numpy
+from tiflash_jax.expr.nodes import col, lit
+from tiflash_jax.ops.aggregate import AggDesc
+from tiflash_jax.plan import nodes as P
+from tiflash_jax.plan.auto import autosize_plan, _sample_ndv
+from tiflash_jax.testing import oracle as O
 
 
 def test_ndv_extrapolation_clustered_and_uniform():
@@ -56,7 +56,7 @@ def test_autosize_fills_agg_slots_and_join_capacity():
 
     # the sized plan still answers correctly through the runner (retry
     # net catches any undersizing)
-    from tiflash_tpu.runtime.executor import run_query
+    from tiflash_jax.runtime.executor import run_query
 
     out, _ = run_query(plan, {"L": blkL, "R": blkR})
     got = O.sort_pytable(O.block_to_pytable(out.compact()))

@@ -12,13 +12,13 @@ import urllib.request
 
 import pytest
 
-from tiflash_tpu.bench.tpch_queries import q6_plan
-from tiflash_tpu.mpp.service import QueryService, serve_background
-from tiflash_tpu.plan import serde
-from tiflash_tpu.runtime.cancel import CancelFlag, QueryCancelled
-from tiflash_tpu.runtime.executor import QueryRunner
-from tiflash_tpu.runtime.failpoint import FailPoint
-from tiflash_tpu.storage.tpch import generate_tpch
+from tiflash_jax.bench.tpch_queries import q6_plan
+from tiflash_jax.mpp.service import QueryService, serve_background
+from tiflash_jax.plan import serde
+from tiflash_jax.runtime.cancel import CancelFlag, QueryCancelled
+from tiflash_jax.runtime.executor import QueryRunner
+from tiflash_jax.runtime.failpoint import FailPoint
+from tiflash_jax.storage.tpch import generate_tpch
 
 
 @pytest.fixture(scope="module")

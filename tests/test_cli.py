@@ -5,10 +5,10 @@ import json
 
 import numpy as np
 
-import tiflash_tpu.core.dtypes as dt
-from tiflash_tpu.cli import _repl, main
-from tiflash_tpu.storage.catalog import Catalog
-from tiflash_tpu.testing import oracle as O
+import tiflash_jax.core.dtypes as dt
+from tiflash_jax.cli import _repl, main
+from tiflash_jax.storage.catalog import Catalog
+from tiflash_jax.testing import oracle as O
 
 
 def _catalog():

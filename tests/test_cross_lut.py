@@ -12,11 +12,11 @@ hex_int,unhex,space}.test``.
 import numpy as np
 import pytest
 
-import tiflash_tpu.core.dtypes as dt
-from tiflash_tpu.core.block import Block, column_from_numpy
-from tiflash_tpu.expr.nodes import call, col, lit
-from tiflash_tpu.expr.compile import evaluate_expr
-from tiflash_tpu.testing import oracle as O
+import tiflash_jax.core.dtypes as dt
+from tiflash_jax.core.block import Block, column_from_numpy
+from tiflash_jax.expr.nodes import call, col, lit
+from tiflash_jax.expr.compile import evaluate_expr
+from tiflash_jax.testing import oracle as O
 
 SCHEMA = {
     "n": dt.INT64.with_nullable(True),

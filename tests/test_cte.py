@@ -4,13 +4,13 @@ import jax
 import numpy as np
 from jax.sharding import Mesh
 
-import tiflash_tpu.core.dtypes as dt
-from tiflash_tpu.expr.nodes import col
-from tiflash_tpu.ops.aggregate import AggDesc
-from tiflash_tpu.plan import nodes as P
-from tiflash_tpu.plan.compiler import compile_fragment
-from tiflash_tpu.testing import oracle as O
-from tiflash_tpu.testing.plan_oracle import execute_plan_oracle
+import tiflash_jax.core.dtypes as dt
+from tiflash_jax.expr.nodes import col
+from tiflash_jax.ops.aggregate import AggDesc
+from tiflash_jax.plan import nodes as P
+from tiflash_jax.plan.compiler import compile_fragment
+from tiflash_jax.testing import oracle as O
+from tiflash_jax.testing.plan_oracle import execute_plan_oracle
 
 
 def setup(seed=0, n=120):
@@ -57,7 +57,7 @@ def test_cte_multiple_consumers_aggregate():
 
 
 def test_cte_distributed():
-    from tiflash_tpu.runtime.executor import run_query
+    from tiflash_jax.runtime.executor import run_query
 
     t, blocks = setup(seed=2, n=320)
     mesh = Mesh(np.array(jax.devices()[:8]), ("d",))

@@ -11,13 +11,13 @@ from decimal import Decimal as D
 import numpy as np
 import pytest
 
-import tiflash_tpu.core.dtypes as dt
-from tiflash_tpu.core.block import Block, column_from_numpy
-from tiflash_tpu.expr.nodes import Cast, col
-from tiflash_tpu.ops.aggregate import AggDesc
-from tiflash_tpu.plan import nodes as P
-from tiflash_tpu.plan.compiler import compile_fragment
-from tiflash_tpu.testing import oracle as O
+import tiflash_jax.core.dtypes as dt
+from tiflash_jax.core.block import Block, column_from_numpy
+from tiflash_jax.expr.nodes import Cast, col
+from tiflash_jax.ops.aggregate import AggDesc
+from tiflash_jax.plan import nodes as P
+from tiflash_jax.plan.compiler import compile_fragment
+from tiflash_jax.testing import oracle as O
 
 CTX = decimal.Context(prec=65)
 
@@ -129,13 +129,13 @@ def test_quad_sort_and_compare():
         "w": column_from_numpy(mant, dt.Decimal(58, 2)),
         "id": column_from_numpy(list(range(300)), dt.INT64),
     })
-    from tiflash_tpu.ops.sort import SortKey, sort_block
+    from tiflash_jax.ops.sort import SortKey, sort_block
 
     out = sort_block(blk, [SortKey("w")]).compact().to_pylists()
     assert out["w"] == sorted(mant)
     # comparisons against a narrow decimal column
-    from tiflash_tpu.expr.compile import evaluate_expr
-    from tiflash_tpu.expr.nodes import lit
+    from tiflash_jax.expr.compile import evaluate_expr
+    from tiflash_jax.expr.nodes import lit
 
     small = column_from_numpy([10 ** 20] * 300, dt.Decimal(25, 2))
     blk2 = blk.with_column("s", small)
@@ -149,7 +149,7 @@ def test_quad_sum_distributed_matches_single(dist):
     import jax
     from jax.sharding import Mesh
 
-    from tiflash_tpu.runtime.executor import run_query
+    from tiflash_jax.runtime.executor import run_query
 
     rng = np.random.default_rng(21)
     n = 512
@@ -182,7 +182,7 @@ def test_wide_decimal_div_mod():
     corpus mod.test t13).  Oracle: python Fraction/Decimal."""
     import fractions
 
-    from tiflash_tpu.expr.nodes import call
+    from tiflash_jax.expr.nodes import call
 
     rng = np.random.default_rng(11)
     mant_a = _rand_mantissas(rng, 48, 55) + [0, 10 ** 55 - 1]

@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh
 
-from tiflash_tpu.testing.declarative import discover_cases, load_case, run_case
+from tiflash_jax.testing.declarative import discover_cases, load_case, run_case
 
 CASES_DIR = os.path.join(os.path.dirname(__file__), "cases")
 CASES = list(discover_cases(CASES_DIR))

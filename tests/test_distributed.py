@@ -12,25 +12,25 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh
 
-import tiflash_tpu.core.dtypes as dt
-from tiflash_tpu.expr.nodes import col, lit
-from tiflash_tpu.mpp.runner import (
+import tiflash_jax.core.dtypes as dt
+from tiflash_jax.expr.nodes import col, lit
+from tiflash_jax.mpp.runner import (
     ExchangeConfig,
     collect_result,
     compile_distributed,
     shard_catalog_blocks,
 )
-from tiflash_tpu.ops.aggregate import AggDesc
-from tiflash_tpu.ops.sort import SortKey
-from tiflash_tpu.plan import nodes as P
-from tiflash_tpu.plan.distribute import (
+from tiflash_jax.ops.aggregate import AggDesc
+from tiflash_jax.ops.sort import SortKey
+from tiflash_jax.plan import nodes as P
+from tiflash_jax.plan.distribute import (
     broadcast_join,
     gather_topn,
     shuffle_join,
     split_aggregation,
 )
-from tiflash_tpu.testing import oracle as O
-from tiflash_tpu.testing.plan_oracle import execute_plan_oracle
+from tiflash_jax.testing import oracle as O
+from tiflash_jax.testing.plan_oracle import execute_plan_oracle
 
 
 @pytest.fixture(scope="module")
@@ -162,7 +162,7 @@ def test_shuffle_join_with_runtime_filter(mesh):
     """Runtime filter: build min/max prunes probe rows pre-exchange;
     results must be identical to the unfiltered join."""
     lt, rt, blocks = make_join_tables(mesh, seed=11)
-    from tiflash_tpu.plan.distribute import shuffle_join
+    from tiflash_jax.plan.distribute import shuffle_join
 
     plan = shuffle_join(
         "inner", ["lk"], ["rk"], P.TableScan("l"), P.TableScan("r"),
@@ -177,7 +177,7 @@ def test_runtime_filter_actually_prunes(mesh):
     """With a narrow build key range, the probe exchange should carry far
     fewer rows (observable via a small shuffle capacity that would
     overflow without the filter)."""
-    import tiflash_tpu.core.dtypes as dtt
+    import tiflash_jax.core.dtypes as dtt
 
     lt = {"lk": list(range(640)), "lv": [1] * 640}
     rt = {"rk": [10, 11, 12], "rv": [7, 8, 9]}
@@ -188,7 +188,7 @@ def test_runtime_filter_actually_prunes(mesh):
         },
         mesh,
     )
-    from tiflash_tpu.plan.distribute import shuffle_join
+    from tiflash_jax.plan.distribute import shuffle_join
 
     # capacity too small for 640 rows but plenty for the ~3 surviving ones
     plan = shuffle_join(
@@ -208,7 +208,7 @@ def test_runtime_filter_in_set_prunes_gaps(mesh):
     every probe row in [5, 600]; the sorted-set membership must prune the
     gap so a tiny exchange capacity survives (DataStreams/RuntimeFilter.h
     IN type analog)."""
-    import tiflash_tpu.core.dtypes as dtt
+    import tiflash_jax.core.dtypes as dtt
 
     lt = {"lk": list(range(640)), "lv": [1] * 640}
     rt = {"rk": [5, 600], "rv": [7, 8]}
@@ -219,7 +219,7 @@ def test_runtime_filter_in_set_prunes_gaps(mesh):
         },
         mesh,
     )
-    from tiflash_tpu.plan.distribute import shuffle_join
+    from tiflash_jax.plan.distribute import shuffle_join
 
     # 640 in-range rows would overflow; only 2 survive the IN-set
     plan = shuffle_join(
@@ -238,7 +238,7 @@ def test_runtime_filter_in_set_respects_size_gate(mesh):
     """Builds larger than rf_in_set_max_build publish min/max only —
     results stay correct (the set is an optimization, never semantics)."""
     lt, rt, blocks = make_join_tables(mesh, seed=13)
-    from tiflash_tpu.plan.distribute import shuffle_join
+    from tiflash_jax.plan.distribute import shuffle_join
 
     plan = shuffle_join(
         "inner", ["lk"], ["rk"], P.TableScan("l"), P.TableScan("r"),

@@ -5,12 +5,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import tiflash_tpu.core.dtypes as dt
-from tiflash_tpu.ops.aggregate import AggDesc, auto_passthrough_aggregate
-from tiflash_tpu.plan import nodes as P
-from tiflash_tpu.plan.compiler import compile_fragment
-from tiflash_tpu.testing import oracle as O
-from tiflash_tpu.testing.plan_oracle import execute_plan_oracle
+import tiflash_jax.core.dtypes as dt
+from tiflash_jax.ops.aggregate import AggDesc, auto_passthrough_aggregate
+from tiflash_jax.plan import nodes as P
+from tiflash_jax.plan.compiler import compile_fragment
+from tiflash_jax.testing import oracle as O
+from tiflash_jax.testing.plan_oracle import execute_plan_oracle
 
 
 def tables_for(schemas, seed=0, n=200, **kw):
@@ -63,7 +63,7 @@ def test_cross_join():
 
 
 def test_cross_join_overflow_retry():
-    from tiflash_tpu.runtime.executor import run_query
+    from tiflash_jax.runtime.executor import run_query
 
     pts, blocks = tables_for(
         {"l": {"a": dt.INT32}, "r": {"b": dt.INT32}}, n=40, null_prob=0
@@ -97,7 +97,7 @@ def test_anti_null_aware(with_nulls, empty_build):
         rb = O.pytable_to_block(rt, rs)
         rt_oracle = rt
     lb = O.pytable_to_block(lt, ls)
-    from tiflash_tpu.ops.join import hash_join
+    from tiflash_jax.ops.join import hash_join
 
     joined, _ = hash_join(lb, rb, ["lk"], ["rk"], kind="anti_null_aware",
                           output_capacity=512)
@@ -140,8 +140,8 @@ def test_auto_passthrough_distributed_final_merge():
     import jax
     from jax.sharding import Mesh
 
-    from tiflash_tpu.plan.distribute import split_aggregation
-    from tiflash_tpu.runtime.executor import run_query
+    from tiflash_jax.plan.distribute import split_aggregation
+    from tiflash_jax.runtime.executor import run_query
 
     mesh = Mesh(np.array(jax.devices()[:8]), ("d",))
     rng = np.random.default_rng(5)

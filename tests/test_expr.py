@@ -7,11 +7,11 @@ Role analog: ``dbms/src/Functions/tests`` (FunctionTest fixtures) and
 import numpy as np
 import pytest
 
-import tiflash_tpu.core.dtypes as dt
-from tiflash_tpu.core.block import Block, column_from_numpy as cfn
-from tiflash_tpu.expr.nodes import call, case_when, col, if_, lit
-from tiflash_tpu.expr.compile import evaluate_expr
-from tiflash_tpu.testing import oracle as O
+import tiflash_jax.core.dtypes as dt
+from tiflash_jax.core.block import Block, column_from_numpy as cfn
+from tiflash_jax.expr.nodes import call, case_when, col, if_, lit
+from tiflash_jax.expr.compile import evaluate_expr
+from tiflash_jax.testing import oracle as O
 
 
 SCHEMA = {
@@ -146,7 +146,7 @@ def test_string_column_vs_column_cross_dictionary():
     for op, pyop in [("equals", lambda x, y: x == y),
                      ("less", lambda x, y: x < y),
                      ("greater_or_equals", lambda x, y: x >= y)]:
-        from tiflash_tpu.expr.nodes import call as _call
+        from tiflash_jax.expr.nodes import call as _call
 
         got = evaluate_expr(_call(op, col("a"), col("b")), block).to_pylist()
         want = [pyop(x, y) for x, y in zip(["apple", "pear", "zebra", "kiwi"], b_vals)]
@@ -202,7 +202,7 @@ def test_mod_div_64bit_boundaries():
         (5, UMAX, 5, 0),
         (UMAX, IMAX, 1, 2),
     ]:
-        from tiflash_tpu.expr.nodes import call as _c
+        from tiflash_jax.expr.nodes import call as _c
         assert O.eval_expr_row(_c("modulo", col("x"), col("y")),
                                {"x": a, "y": b}) == want_mod
         assert O.eval_expr_row(_c("int_div", col("x"), col("y")),

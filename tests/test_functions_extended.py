@@ -4,11 +4,11 @@
 import numpy as np
 import pytest
 
-import tiflash_tpu.core.dtypes as dt
-from tiflash_tpu.core.block import Block
-from tiflash_tpu.expr.nodes import call, col, lit
-from tiflash_tpu.expr.compile import evaluate_expr
-from tiflash_tpu.testing import oracle as O
+import tiflash_jax.core.dtypes as dt
+from tiflash_jax.core.block import Block
+from tiflash_jax.expr.nodes import call, col, lit
+from tiflash_jax.expr.compile import evaluate_expr
+from tiflash_jax.testing import oracle as O
 
 SCHEMA = {
     "i": dt.INT64.with_nullable(True),
@@ -123,7 +123,7 @@ def test_string_transform_then_compare(data):
 
 
 def test_cast_node(data):
-    from tiflash_tpu.expr.nodes import cast
+    from tiflash_jax.expr.nodes import cast
 
     table, block = data
     c = evaluate_expr(cast(col("i"), dt.Decimal(12, 3)), block)
@@ -162,7 +162,7 @@ def test_bit_ops(expr, data):
     def ref(i):
         row = {k: table[k][i] for k in table}
         def ev(e):
-            from tiflash_tpu.expr.nodes import Call, ColumnRef, Literal
+            from tiflash_jax.expr.nodes import Call, ColumnRef, Literal
             if isinstance(e, ColumnRef):
                 return row[e.name]
             if isinstance(e, Literal):
@@ -189,7 +189,7 @@ def test_bit_ops(expr, data):
 
 
 def test_variance_aggregates():
-    from tiflash_tpu.ops.aggregate import AggDesc, hash_aggregate
+    from tiflash_jax.ops.aggregate import AggDesc, hash_aggregate
 
     rng = np.random.default_rng(21)
     schema = {"k": dt.INT8, "v": dt.Decimal(10, 2, nullable=True)}

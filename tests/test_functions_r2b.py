@@ -9,12 +9,12 @@ at /root/reference/dbms/src/Flash/Coprocessor/DAGUtils.cpp:92.
 import numpy as np
 import pytest
 
-import tiflash_tpu.core.dtypes as dt
-from tiflash_tpu.core.block import Block
-from tiflash_tpu.core.dtypes import TypeKind
-from tiflash_tpu.expr.nodes import call, col, lit
-from tiflash_tpu.expr.compile import evaluate_expr
-from tiflash_tpu.testing import oracle as O
+import tiflash_jax.core.dtypes as dt
+from tiflash_jax.core.block import Block
+from tiflash_jax.core.dtypes import TypeKind
+from tiflash_jax.expr.nodes import call, col, lit
+from tiflash_jax.expr.compile import evaluate_expr
+from tiflash_jax.testing import oracle as O
 
 SCHEMA = {
     "i": dt.INT64.with_nullable(True),
@@ -170,7 +170,7 @@ def test_extract(unit, dtdata):
 
 def test_now_family(dtdata):
     import datetime as pydt
-    from tiflash_tpu.expr.compile import query_clock
+    from tiflash_jax.expr.compile import query_clock
     _, block = dtdata
     us = 1_700_000_123_456_789
     with query_clock(us):
@@ -216,7 +216,7 @@ def test_rand(dtdata):
     assert np.array_equal(v1, np.asarray(c2.data))
     assert not np.array_equal(v1, np.asarray(c3.data))
     assert len(np.unique(v1)) > len(v1) // 2
-    from tiflash_tpu.expr.compile import query_clock
+    from tiflash_jax.expr.compile import query_clock
     with query_clock(123_456_789):
         c4 = evaluate_expr(call("rand"), block)
         assert ((np.asarray(c4.data) >= 0) & (np.asarray(c4.data) < 1)).all()
@@ -233,9 +233,9 @@ def test_adddate_interval_form(dtdata):
 def test_grouping_functions():
     """GROUPING over an Expand gid column, checked against the plan oracle
     (reference Functions/FunctionsGrouping.h three modes)."""
-    import tiflash_tpu.plan.nodes as P
-    from tiflash_tpu.plan.compiler import compile_fragment
-    from tiflash_tpu.testing.plan_oracle import execute_plan_oracle
+    import tiflash_jax.plan.nodes as P
+    from tiflash_jax.plan.compiler import compile_fragment
+    from tiflash_jax.testing.plan_oracle import execute_plan_oracle
 
     rng = np.random.default_rng(3)
     schema = {"a": dt.STRING, "b": dt.INT32, "v": dt.INT64}
@@ -280,8 +280,8 @@ def test_cast_string_to_numbers_and_dates():
     numeric-cast path would astype the int32 codes)."""
     import datetime as pydt
 
-    from tiflash_tpu.core.block import column_from_numpy
-    from tiflash_tpu.expr.nodes import cast
+    from tiflash_jax.core.block import column_from_numpy
+    from tiflash_jax.expr.nodes import cast
 
     vals = ["12", "3.6", "-4.5", " 7.25e2 ", "12abc", "junk", "", "0.4"]
     block = Block.from_dict({"s": column_from_numpy(vals, dt.STRING)})
@@ -311,8 +311,8 @@ def test_cast_string_to_numbers_and_dates():
 def test_cast_date_datetime_roundtrip():
     import datetime as pydt
 
-    from tiflash_tpu.core.block import column_from_numpy
-    from tiflash_tpu.expr.nodes import cast
+    from tiflash_jax.core.block import column_from_numpy
+    from tiflash_jax.expr.nodes import cast
 
     days = [(pydt.date(2021, 3, 1) - pydt.date(1970, 1, 1)).days]
     block = Block.from_dict({
@@ -332,7 +332,7 @@ def test_cast_date_datetime_roundtrip():
 def test_round_frac_float_decimal_int():
     """tidbRoundWithFrac / tidbTruncateWithFrac (regression: the frac arg
     used to be silently ignored)."""
-    from tiflash_tpu.core.block import column_from_numpy
+    from tiflash_jax.core.block import column_from_numpy
 
     table = {"f": [1.2345, -2.718, 9.995], "i": [125, -125, 4],
              "d": [None]}
@@ -376,7 +376,7 @@ def test_round_frac_float_decimal_int():
 
 def test_info_functions(dtdata):
     _, block = dtdata
-    for fn, want in [("version", "8.0.11-TiDB-tiflash-tpu-0.2"),
+    for fn, want in [("version", "8.0.11-TiDB-tiflash-jax-0.2"),
                      ("database", "default"), ("user", "root@%")]:
         c = evaluate_expr(call(fn), block)
         vals = O.block_to_pytable(Block(names=("r",), columns=(c,)))["r"]
@@ -393,7 +393,7 @@ def test_str_to_date_datetime_form(data):
     strToDateDatetime vs strToDateDate sigs)."""
     import datetime as pydt
 
-    from tiflash_tpu.core.block import column_from_numpy
+    from tiflash_jax.core.block import column_from_numpy
 
     vals = ["2023-01-31 13:45:06", "1999-12-01 00:00:59", "nope",
             "2023-06-05 23:59:59"]

@@ -12,14 +12,14 @@ oracle exactly, single-chip AND on the 8-device mesh (auto-distributed).
 import numpy as np
 import pytest
 
-import tiflash_tpu.core.dtypes as dt
-from tiflash_tpu.expr.nodes import call, col, lit
-from tiflash_tpu.ops.aggregate import AggDesc
-from tiflash_tpu.ops.sort import SortKey
-from tiflash_tpu.plan import nodes as P
-from tiflash_tpu.plan.compiler import compile_fragment
-from tiflash_tpu.testing import oracle as O
-from tiflash_tpu.testing.plan_oracle import execute_plan_oracle
+import tiflash_jax.core.dtypes as dt
+from tiflash_jax.expr.nodes import call, col, lit
+from tiflash_jax.ops.aggregate import AggDesc
+from tiflash_jax.ops.sort import SortKey
+from tiflash_jax.plan import nodes as P
+from tiflash_jax.plan.compiler import compile_fragment
+from tiflash_jax.testing import oracle as O
+from tiflash_jax.testing.plan_oracle import execute_plan_oracle
 
 INT_COLS = ["a", "b"]
 STR_COL = "s"
@@ -55,7 +55,7 @@ def _rand_pred(rng):
 
 
 def _rand_proj(rng):
-    from tiflash_tpu.expr.nodes import cast
+    from tiflash_jax.expr.nodes import cast
 
     exprs = {n: col(n) for n in SCHEMA}
     pick = rng.choice(["arith", "cond", "strfn", "cast_fi", "cast_if"])
@@ -177,7 +177,7 @@ def test_fuzz_plan_distributed_matches(seed):
     import jax
     from jax.sharding import Mesh
 
-    from tiflash_tpu.runtime.executor import run_query
+    from tiflash_jax.runtime.executor import run_query
 
     rng = np.random.default_rng(1000 + seed)
     tables = _tables(rng)
@@ -217,7 +217,7 @@ def test_null_group_not_split_after_join():
 # --- window / grouping-sets fuzz shapes --------------------------------------
 
 def _rand_window(rng, node):
-    from tiflash_tpu.ops.window import WindowDesc
+    from tiflash_jax.ops.window import WindowDesc
 
     pool = [WindowDesc("row_number", "rn"),
             WindowDesc("rank", "rk"),

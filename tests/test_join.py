@@ -7,9 +7,9 @@ key shapes, unique-build fast path and general N:M expansion.
 import numpy as np
 import pytest
 
-import tiflash_tpu.core.dtypes as dt
-from tiflash_tpu.ops import join as J
-from tiflash_tpu.testing import oracle as O
+import tiflash_jax.core.dtypes as dt
+from tiflash_jax.ops import join as J
+from tiflash_jax.testing import oracle as O
 
 
 def make_tables(seed=0, nl=300, nr=120, key_dt=dt.INT32, unique_build=False,

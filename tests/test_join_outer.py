@@ -6,12 +6,12 @@ device and distributed hash-shuffle.
 import numpy as np
 import pytest
 
-from tiflash_tpu.core.block import Block, column_from_numpy
-from tiflash_tpu.core.dtypes import INT64, STRING
-from tiflash_tpu.plan import nodes as P
-from tiflash_tpu.plan.compiler import compile_fragment
-from tiflash_tpu.testing import oracle as O
-from tiflash_tpu.testing.plan_oracle import execute_plan_oracle
+from tiflash_jax.core.block import Block, column_from_numpy
+from tiflash_jax.core.dtypes import INT64, STRING
+from tiflash_jax.plan import nodes as P
+from tiflash_jax.plan.compiler import compile_fragment
+from tiflash_jax.testing import oracle as O
+from tiflash_jax.testing.plan_oracle import execute_plan_oracle
 
 
 def _tables(string_keys=False, nulls=True):
@@ -102,11 +102,11 @@ def test_right_outer_empty_probe():
     plan = P.Join(
         kind="right_outer", probe_keys=["k"], build_keys=["k"],
         probe=P.Selection(
-            cond=__import__("tiflash_tpu.expr.nodes", fromlist=["Call"]).Call(
+            cond=__import__("tiflash_jax.expr.nodes", fromlist=["Call"]).Call(
                 "greater", (
-                    __import__("tiflash_tpu.expr.nodes",
+                    __import__("tiflash_jax.expr.nodes",
                                fromlist=["ColumnRef"]).ColumnRef("lv"),
-                    __import__("tiflash_tpu.expr.nodes",
+                    __import__("tiflash_jax.expr.nodes",
                                fromlist=["Literal"]).Literal(10 ** 9),
                 )
             ),
@@ -126,10 +126,10 @@ def test_distributed_shuffle_right_outer():
     import numpy as _np
     from jax.sharding import Mesh
 
-    from tiflash_tpu.mpp.runner import (
+    from tiflash_jax.mpp.runner import (
         collect_result, compile_distributed, shard_catalog_blocks,
     )
-    from tiflash_tpu.plan.distribute import shuffle_join
+    from tiflash_jax.plan.distribute import shuffle_join
 
     tables = _tables()
     mesh = Mesh(_np.array(jax.devices()), ("d",))

@@ -11,8 +11,8 @@ pushdown list ``dbms/src/Flash/Coprocessor/DAGUtils.cpp``.
 
 import pytest
 
-from tiflash_tpu.runtime.errors import EngineError
-from tiflash_tpu.testing.reftest import RefTestSession
+from tiflash_jax.runtime.errors import EngineError
+from tiflash_jax.testing.reftest import RefTestSession
 
 
 def _session():

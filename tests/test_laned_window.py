@@ -7,16 +7,16 @@ import numpy as np
 import pytest
 
 import jax
-import tiflash_tpu.core.dtypes as dt
-from tiflash_tpu.core.block import Block, column_from_numpy
-from tiflash_tpu.ops.sort import SortKey
-from tiflash_tpu.ops.window import WindowDesc
-from tiflash_tpu.plan import nodes as P
-from tiflash_tpu.plan.auto import distribute_plan
-from tiflash_tpu.mpp.runner import (collect_result, compile_distributed,
+import tiflash_jax.core.dtypes as dt
+from tiflash_jax.core.block import Block, column_from_numpy
+from tiflash_jax.ops.sort import SortKey
+from tiflash_jax.ops.window import WindowDesc
+from tiflash_jax.plan import nodes as P
+from tiflash_jax.plan.auto import distribute_plan
+from tiflash_jax.mpp.runner import (collect_result, compile_distributed,
                                     shard_catalog_blocks)
-from tiflash_tpu.plan.compiler import compile_fragment
-from tiflash_tpu.testing import oracle as O
+from tiflash_jax.plan.compiler import compile_fragment
+from tiflash_jax.testing import oracle as O
 
 
 @pytest.fixture(scope="module")
@@ -39,7 +39,7 @@ FUNCS = [
 
 
 def _run_both(tables, partition_by, mesh, order=None):
-    from tiflash_tpu.mpp.runner import ExchangeConfig
+    from tiflash_jax.mpp.runner import ExchangeConfig
 
     order = order or [SortKey("o")]
     plan = P.Window(partition_by, order, FUNCS, P.TableScan("t"))
@@ -125,7 +125,7 @@ EXT_FUNCS = [
 
 
 def _run_ext(tables, partition_by, mesh, order=None):
-    from tiflash_tpu.mpp.runner import ExchangeConfig
+    from tiflash_jax.mpp.runner import ExchangeConfig
 
     order = order or [SortKey("o")]
     plan = P.Window(partition_by, order, EXT_FUNCS, P.TableScan("t"))

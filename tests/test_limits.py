@@ -7,15 +7,15 @@ row counters for operator limits."""
 import numpy as np
 import pytest
 
-import tiflash_tpu.core.dtypes as dt
-from tiflash_tpu.expr.nodes import col
-from tiflash_tpu.ops.aggregate import AggDesc
-from tiflash_tpu.ops.sort import SortKey
-from tiflash_tpu.plan import nodes as P
-from tiflash_tpu.runtime.errors import LIMIT_EXCEEDED, EngineError
-from tiflash_tpu.runtime.executor import run_query
-from tiflash_tpu.runtime.settings import Settings
-from tiflash_tpu.testing import oracle as O
+import tiflash_jax.core.dtypes as dt
+from tiflash_jax.expr.nodes import col
+from tiflash_jax.ops.aggregate import AggDesc
+from tiflash_jax.ops.sort import SortKey
+from tiflash_jax.plan import nodes as P
+from tiflash_jax.runtime.errors import LIMIT_EXCEEDED, EngineError
+from tiflash_jax.runtime.executor import run_query
+from tiflash_jax.runtime.settings import Settings
+from tiflash_jax.testing import oracle as O
 
 
 @pytest.fixture(scope="module")

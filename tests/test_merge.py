@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tiflash_tpu.ops.merge import flagged_positions, probe_ranges_fast
+from tiflash_jax.ops.merge import flagged_positions, probe_ranges_fast
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
@@ -109,7 +109,7 @@ def test_dense_inverse(seed, num_out):
     counts = rng.integers(0, 5, 20)
     cum = np.cumsum(counts)
     got = np.asarray(jax.jit(lambda c: __import__(
-        "tiflash_tpu.ops.merge", fromlist=["dense_inverse"]
+        "tiflash_jax.ops.merge", fromlist=["dense_inverse"]
     ).dense_inverse(c, num_out))(jnp.asarray(cum)))
     want = np.searchsorted(cum, np.arange(num_out), side="right")
     np.testing.assert_array_equal(got, want.astype(np.int32))

@@ -19,8 +19,8 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import pytest
 
-import tiflash_tpu.core.dtypes as dt
-from tiflash_tpu.testing import oracle as O
+import tiflash_jax.core.dtypes as dt
+from tiflash_jax.testing import oracle as O
 
 WORKER = os.path.join(os.path.dirname(__file__), "multihost_worker.py")
 
@@ -77,7 +77,7 @@ def test_two_process_multihost():
     want_ro = O.o_join(t, r, ["k"], ["rk"], kind="right_outer")
     tw = dict(t)
     tw["p2"] = [k % 2 for k in t["k"]]
-    from tiflash_tpu.ops.window import WindowDesc
+    from tiflash_jax.ops.window import WindowDesc
 
     want_win = O.o_window(tw, ["p2"], [("v", False)],
                           [WindowDesc("row_number", "rn"),

@@ -6,8 +6,8 @@ import os
 import numpy as np
 import pytest
 
-import tiflash_tpu.core.dtypes as dt
-from tiflash_tpu.storage.native_loader import load_table
+import tiflash_jax.core.dtypes as dt
+from tiflash_jax.storage.native_loader import load_table
 
 TBL = """1|alpha|12.34|1995-03-15|7.5
 2|beta|0.5|2001-12-31|-3.25
@@ -86,8 +86,8 @@ def test_multithreaded_parse_matches(tmp_path):
 
 def test_save_and_reload_engine_columns(tmp_path):
     """Engine block -> TFC file -> reload: exact round-trip incl. strings."""
-    from tiflash_tpu.storage.native_loader import load_cached_table, save_table
-    from tiflash_tpu.testing import oracle as O
+    from tiflash_jax.storage.native_loader import load_cached_table, save_table
+    from tiflash_jax.testing import oracle as O
 
     schema = {"k": dt.STRING, "v": dt.Decimal(12, 2), "d": dt.DATE,
               "x": dt.FLOAT64, "i": dt.INT64}
@@ -103,18 +103,18 @@ def test_save_and_reload_engine_columns(tmp_path):
     names = save_table(path, dict(zip(block.names, block.columns)))
     cols = load_cached_table(path, [(n, schema[n]) for n in names])
     reloaded = O.block_to_pytable(
-        __import__("tiflash_tpu").Block.from_dict(cols)
+        __import__("tiflash_jax").Block.from_dict(cols)
     )
     O.assert_tables_equal(reloaded, t, ordered=True)
 
 
 def test_catalog_append_write_path():
     """INSERT analog: appended rows visible to queries; merged dictionaries."""
-    from tiflash_tpu.storage.catalog import Catalog
-    from tiflash_tpu.testing import oracle as O
-    from tiflash_tpu.plan import nodes as P
-    from tiflash_tpu.plan.compiler import compile_fragment
-    from tiflash_tpu.ops.aggregate import AggDesc
+    from tiflash_jax.storage.catalog import Catalog
+    from tiflash_jax.testing import oracle as O
+    from tiflash_jax.plan import nodes as P
+    from tiflash_jax.plan.compiler import compile_fragment
+    from tiflash_jax.ops.aggregate import AggDesc
 
     schema = {"k": dt.STRING, "v": dt.INT64}
     cat = Catalog()

@@ -14,9 +14,9 @@ import pathlib
 
 ORACLE_FILES = [
     pathlib.Path(__file__).resolve().parents[1]
-    / "tiflash_tpu" / "testing" / "oracle.py",
+    / "tiflash_jax" / "testing" / "oracle.py",
     pathlib.Path(__file__).resolve().parents[1]
-    / "tiflash_tpu" / "testing" / "plan_oracle.py",
+    / "tiflash_jax" / "testing" / "plan_oracle.py",
 ]
 
 # modules the oracle may import from the engine package: AST node type
@@ -46,15 +46,15 @@ def _engine_imports(path):
         if isinstance(node, ast.ImportFrom) and node.module:
             mod = node.module
             # relative imports: level=2 means ..expr.nodes etc.
-            if node.level >= 2 or mod.startswith("tiflash_tpu."):
-                mod = mod.removeprefix("tiflash_tpu.")
+            if node.level >= 2 or mod.startswith("tiflash_jax."):
+                mod = mod.removeprefix("tiflash_jax.")
                 out.append((mod, [a.name for a in node.names], node.lineno))
             elif node.level == 1 and mod.split(".")[0] in FORBIDDEN_PREFIXES:
                 out.append((mod, [a.name for a in node.names], node.lineno))
         elif isinstance(node, ast.Import):
             for a in node.names:
-                if a.name.startswith("tiflash_tpu."):
-                    mod = a.name.removeprefix("tiflash_tpu.")
+                if a.name.startswith("tiflash_jax."):
+                    mod = a.name.removeprefix("tiflash_jax.")
                     out.append((mod, ["*"], node.lineno))
     return out
 
@@ -76,7 +76,7 @@ def test_oracle_imports_only_node_types():
 
 
 def test_oracle_substring_matches_mysql_semantics():
-    from tiflash_tpu.testing.oracle import _oracle_substring
+    from tiflash_jax.testing.oracle import _oracle_substring
 
     # MySQL manual examples + edge cases
     assert _oracle_substring("Quadratically", 5) == "ratically"

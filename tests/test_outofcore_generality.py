@@ -7,13 +7,13 @@ quantile).  Reference: the spiller handles every breaker unconditionally
 import numpy as np
 import pytest
 
-import tiflash_tpu.core.dtypes as dt
-from tiflash_tpu.expr.nodes import col
-from tiflash_tpu.ops.aggregate import AggDesc
-from tiflash_tpu.plan import nodes as P
-from tiflash_tpu.runtime.executor import QueryRunner
-from tiflash_tpu.runtime.settings import Settings
-from tiflash_tpu.testing import oracle as O
+import tiflash_jax.core.dtypes as dt
+from tiflash_jax.expr.nodes import col
+from tiflash_jax.ops.aggregate import AggDesc
+from tiflash_jax.plan import nodes as P
+from tiflash_jax.runtime.executor import QueryRunner
+from tiflash_jax.runtime.settings import Settings
+from tiflash_jax.testing import oracle as O
 
 
 def _norm(block):
@@ -76,7 +76,7 @@ def test_groupagg_with_topn_wrapper(tmp_path):
     """TopN above the aggregation re-applies over the merged partials."""
     rng = np.random.default_rng(37)
     n = 12_000
-    from tiflash_tpu.ops.sort import SortKey
+    from tiflash_jax.ops.sort import SortKey
 
     sch = {"g": dt.INT64, "v": dt.INT64}
     t = {"g": [int(x) for x in rng.integers(0, 500, n)],

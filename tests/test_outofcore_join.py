@@ -8,17 +8,17 @@ with exact parity against the in-memory run and the python oracle.
 import numpy as np
 import pytest
 
-import tiflash_tpu.core.dtypes as dt
-from tiflash_tpu.bench.tpch_queries import q3_plan
-from tiflash_tpu.expr.nodes import col
-from tiflash_tpu.ops.aggregate import AggDesc
-from tiflash_tpu.ops.sort import SortKey
-from tiflash_tpu.plan import nodes as P
-from tiflash_tpu.runtime.executor import run_query
-from tiflash_tpu.runtime.outofcore import grace_spec, sliced_spec
-from tiflash_tpu.runtime.settings import Settings
-from tiflash_tpu.storage.tpch import generate_tpch
-from tiflash_tpu.testing import oracle as O
+import tiflash_jax.core.dtypes as dt
+from tiflash_jax.bench.tpch_queries import q3_plan
+from tiflash_jax.expr.nodes import col
+from tiflash_jax.ops.aggregate import AggDesc
+from tiflash_jax.ops.sort import SortKey
+from tiflash_jax.plan import nodes as P
+from tiflash_jax.runtime.executor import run_query
+from tiflash_jax.runtime.outofcore import grace_spec, sliced_spec
+from tiflash_jax.runtime.settings import Settings
+from tiflash_jax.storage.tpch import generate_tpch
+from tiflash_jax.testing import oracle as O
 
 
 @pytest.fixture(scope="module")
@@ -121,11 +121,11 @@ def test_grace_join_adaptive_repartition():
     (the restore-round analog, collapsed into host re-hashing)."""
     import numpy as np
 
-    import tiflash_tpu.core.dtypes as dt
-    from tiflash_tpu.ops.aggregate import AggDesc
-    from tiflash_tpu.plan import nodes as P
-    from tiflash_tpu.runtime.outofcore import run_grace_join
-    from tiflash_tpu.testing import oracle as O
+    import tiflash_jax.core.dtypes as dt
+    from tiflash_jax.ops.aggregate import AggDesc
+    from tiflash_jax.plan import nodes as P
+    from tiflash_jax.runtime.outofcore import run_grace_join
+    from tiflash_jax.testing import oracle as O
 
     rng = np.random.default_rng(31)
     n, m = 20_000, 50

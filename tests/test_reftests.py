@@ -2,7 +2,7 @@
 engine (VERDICT r2 item 4 / SURVEY M7).
 
 Each ``/root/reference/tests/fullstack-test/expr/*.test`` file is parsed
-and executed by ``tiflash_tpu.testing.reftest``; expected outputs come
+and executed by ``tiflash_jax.testing.reftest``; expected outputs come
 from the files themselves (TiDB's recorded answers — the strongest
 parity oracle available).  ``reftest_manifest.json`` records each file's
 expected status:
@@ -38,7 +38,7 @@ FILES = sorted(os.path.basename(p) for p in glob.glob(f"{CORPUS}/*.test"))
                     reason="reference corpus not present")
 @pytest.mark.parametrize("fname", FILES)
 def test_reference_corpus_file(fname):
-    from tiflash_tpu.testing.reftest import Unsupported, run_test_file
+    from tiflash_jax.testing.reftest import Unsupported, run_test_file
 
     entry = MANIFEST.get(fname, {"status": "pass"})
     status = entry["status"]

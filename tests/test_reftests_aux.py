@@ -17,7 +17,7 @@ CASES = [
 @pytest.fixture(autouse=True)
 def _clear_failpoints():
     yield
-    from tiflash_tpu.runtime.failpoint import FailPoint
+    from tiflash_jax.runtime.failpoint import FailPoint
 
     FailPoint.disable_all()
 
@@ -28,7 +28,7 @@ def test_aux_corpus_file(rel, floor):
     path = f"/root/reference/tests/fullstack-test/{rel}"
     if not os.path.exists(path):
         pytest.skip("reference corpus not present")
-    from tiflash_tpu.testing.reftest import run_test_file
+    from tiflash_jax.testing.reftest import run_test_file
 
     checked = run_test_file(path)
     assert checked >= floor, (rel, checked, floor)

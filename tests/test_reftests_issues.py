@@ -22,7 +22,7 @@ FILES = sorted(os.path.basename(p) for p in glob.glob(f"{CORPUS}/*.test"))
 @pytest.fixture(autouse=True)
 def _clear_failpoints():
     yield
-    from tiflash_tpu.runtime.failpoint import FailPoint
+    from tiflash_jax.runtime.failpoint import FailPoint
 
     FailPoint.disable_all()
 
@@ -31,7 +31,7 @@ def _clear_failpoints():
                     reason="reference corpus not present")
 @pytest.mark.parametrize("fname", FILES)
 def test_reference_issue_file(fname):
-    from tiflash_tpu.testing.reftest import Unsupported, run_test_file
+    from tiflash_jax.testing.reftest import Unsupported, run_test_file
 
     entry = MANIFEST.get(fname, {"status": "pass"})
     status = entry["status"]

@@ -3,7 +3,7 @@
 
 These are the distributed-operator composition tests — right/semi/
 cartesian joins, rollup, window/window_agg/window_range_frame, runtime
-filters, fault injection — executed by ``tiflash_tpu.testing.reftest``
+filters, fault injection — executed by ``tiflash_jax.testing.reftest``
 with expected outputs from the files themselves (TiDB's recorded
 answers).  ``reftest_mpp_manifest.json`` mirrors the expr manifest:
 
@@ -31,7 +31,7 @@ FILES = sorted(os.path.basename(p) for p in glob.glob(f"{CORPUS}/*.test"))
 @pytest.fixture(autouse=True)
 def _clear_failpoints():
     yield
-    from tiflash_tpu.runtime.failpoint import FailPoint
+    from tiflash_jax.runtime.failpoint import FailPoint
 
     FailPoint.disable_all()  # fault-inject files arm by name
 
@@ -40,7 +40,7 @@ def _clear_failpoints():
                     reason="reference corpus not present")
 @pytest.mark.parametrize("fname", FILES)
 def test_reference_mpp_file(fname):
-    from tiflash_tpu.testing.reftest import Unsupported, run_test_file
+    from tiflash_jax.testing.reftest import Unsupported, run_test_file
 
     entry = MANIFEST.get(fname, {"status": "pass"})
     status = entry["status"]

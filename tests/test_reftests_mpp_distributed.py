@@ -36,7 +36,7 @@ CASES = [
 def _distributed_mode(monkeypatch):
     monkeypatch.setenv("TIFLASH_REFTEST_DISTRIBUTED", "1")
     yield
-    from tiflash_tpu.runtime.failpoint import FailPoint
+    from tiflash_jax.runtime.failpoint import FailPoint
 
     FailPoint.disable_all()
 
@@ -47,7 +47,7 @@ def test_mpp_file_distributed(fname, floor, dist_floor):
     path = f"/root/reference/tests/fullstack-test/mpp/{fname}"
     if not os.path.exists(path):
         pytest.skip("reference corpus not present")
-    from tiflash_tpu.testing.reftest import RefTestSession, parse_test_file
+    from tiflash_jax.testing.reftest import RefTestSession, parse_test_file
 
     sess = RefTestSession()
     for stmt, expected in parse_test_file(path):

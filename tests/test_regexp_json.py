@@ -6,11 +6,11 @@ independent python oracle.  Reference surface:
 import numpy as np
 import pytest
 
-import tiflash_tpu.core.dtypes as dt
-from tiflash_tpu.core.block import Block
-from tiflash_tpu.expr.nodes import call, col, lit
-from tiflash_tpu.expr.compile import evaluate_expr
-from tiflash_tpu.testing import oracle as O
+import tiflash_jax.core.dtypes as dt
+from tiflash_jax.core.block import Block
+from tiflash_jax.expr.nodes import call, col, lit
+from tiflash_jax.expr.compile import evaluate_expr
+from tiflash_jax.testing import oracle as O
 
 STR_POOL = (
     "hello world", "Hello World", "", "aXbXc", "2023-04-05",

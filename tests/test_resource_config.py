@@ -5,12 +5,12 @@ import time
 import numpy as np
 import pytest
 
-import tiflash_tpu.core.dtypes as dt
-from tiflash_tpu.plan import nodes as P
-from tiflash_tpu.runtime.executor import run_query
-from tiflash_tpu.runtime.resource import RESOURCE_GROUPS, TokenBucket, to_ru
-from tiflash_tpu.runtime.settings import Settings
-from tiflash_tpu.testing import oracle as O
+import tiflash_jax.core.dtypes as dt
+from tiflash_jax.plan import nodes as P
+from tiflash_jax.runtime.executor import run_query
+from tiflash_jax.runtime.resource import RESOURCE_GROUPS, TokenBucket, to_ru
+from tiflash_jax.runtime.settings import Settings
+from tiflash_jax.testing import oracle as O
 
 
 def test_token_bucket_refill_and_limit():
@@ -60,15 +60,15 @@ resource_group = "batch"
 
 
 def test_settings_env_override(monkeypatch):
-    monkeypatch.setenv("TIFLASH_TPU_MAX_CAPACITY_RETRIES", "9")
-    monkeypatch.setenv("TIFLASH_TPU_TOPN_FAST_PATH", "false")
+    monkeypatch.setenv("TIFLASH_JAX_MAX_CAPACITY_RETRIES", "9")
+    monkeypatch.setenv("TIFLASH_JAX_TOPN_FAST_PATH", "false")
     s = Settings.from_env()
     assert s.max_capacity_retries == 9
     assert s.topn_fast_path is False
 
 
 def test_memory_limit_enforced():
-    from tiflash_tpu.runtime.memory import MemoryLimitError
+    from tiflash_jax.runtime.memory import MemoryLimitError
 
     t = {"k": list(range(10_000))}
     blocks = {"t": O.pytable_to_block(t, {"k": dt.INT64})}
@@ -87,9 +87,9 @@ def test_memory_limit_enforced():
 def test_out_of_core_chunked_aggregation():
     """Memory-quota breach falls back to chunked partial/final execution
     with identical results (the spill analog)."""
-    import tiflash_tpu.core.dtypes as dtt
-    from tiflash_tpu.expr.nodes import col
-    from tiflash_tpu.ops.aggregate import AggDesc
+    import tiflash_jax.core.dtypes as dtt
+    from tiflash_jax.expr.nodes import col
+    from tiflash_jax.ops.aggregate import AggDesc
 
     rng = __import__("numpy").random.default_rng(5)
     n = 50_000
@@ -121,12 +121,12 @@ def test_settings_agg_defaults_applied():
     them unset (group_concat_max_len analog)."""
     import numpy as np
 
-    import tiflash_tpu.core.dtypes as dt
-    from tiflash_tpu.ops.aggregate import AggDesc
-    from tiflash_tpu.plan import nodes as P
-    from tiflash_tpu.runtime.executor import QueryRunner
-    from tiflash_tpu.runtime.settings import Settings
-    from tiflash_tpu.testing import oracle as O
+    import tiflash_jax.core.dtypes as dt
+    from tiflash_jax.ops.aggregate import AggDesc
+    from tiflash_jax.plan import nodes as P
+    from tiflash_jax.runtime.executor import QueryRunner
+    from tiflash_jax.runtime.settings import Settings
+    from tiflash_jax.testing import oracle as O
 
     schema = {"k": dt.INT32, "s": dt.STRING, "v": dt.INT64}
     rng = np.random.default_rng(3)
@@ -159,8 +159,8 @@ def _walk_aggs(node):
 
 
 def test_settings_skew_knobs_flow_to_plan():
-    from tiflash_tpu.plan.auto import AutoPlanConfig
-    from tiflash_tpu.runtime.settings import Settings
+    from tiflash_jax.plan.auto import AutoPlanConfig
+    from tiflash_jax.runtime.settings import Settings
 
     s = Settings(skew_hot_keys=7, skew_sample_per_device=99)
     cfg = AutoPlanConfig.from_settings(s)
@@ -170,8 +170,8 @@ def test_settings_skew_knobs_flow_to_plan():
 def test_max_execution_time_setting():
     """max_execution_time analog: deadline fires at a cancellation
     checkpoint (here: inside a paused failpoint)."""
-    from tiflash_tpu.runtime.cancel import QueryTimeout
-    from tiflash_tpu.runtime.failpoint import FailPoint
+    from tiflash_jax.runtime.cancel import QueryTimeout
+    from tiflash_jax.runtime.failpoint import FailPoint
 
     t = {"k": list(range(100))}
     blocks = {"t": O.pytable_to_block(t, {"k": dt.INT64})}
@@ -193,7 +193,7 @@ def test_query_timestamp_setting():
     """query_timestamp_us pins the query clock for reproducible NOW()."""
     import datetime as pydt
 
-    from tiflash_tpu.expr.nodes import call, col
+    from tiflash_jax.expr.nodes import call, col
 
     t = {"k": [1, 2, 3]}
     blocks = {"t": O.pytable_to_block(t, {"k": dt.INT64})}
@@ -209,9 +209,9 @@ def test_query_timestamp_setting():
 def test_enable_spill_off_raises():
     """enable_spill=False turns the out-of-core fallback into a hard
     memory error (the reference's enable_spill switch)."""
-    from tiflash_tpu.expr.nodes import col
-    from tiflash_tpu.ops.aggregate import AggDesc
-    from tiflash_tpu.runtime.memory import MemoryLimitError
+    from tiflash_jax.expr.nodes import col
+    from tiflash_jax.ops.aggregate import AggDesc
+    from tiflash_jax.runtime.memory import MemoryLimitError
 
     rng = np.random.default_rng(11)
     t = {"g": [int(x) for x in rng.integers(0, 8, 30_000)],
@@ -235,11 +235,11 @@ def test_service_queue_timeout():
     import threading
     import urllib.request
 
-    from tiflash_tpu.bench.tpch_queries import q6_plan
-    from tiflash_tpu.mpp.service import QueryService, serve_background
-    from tiflash_tpu.plan import serde
-    from tiflash_tpu.runtime.failpoint import FailPoint
-    from tiflash_tpu.storage.tpch import generate_tpch
+    from tiflash_jax.bench.tpch_queries import q6_plan
+    from tiflash_jax.mpp.service import QueryService, serve_background
+    from tiflash_jax.plan import serde
+    from tiflash_jax.runtime.failpoint import FailPoint
+    from tiflash_jax.storage.tpch import generate_tpch
 
     cat = generate_tpch(sf=0.001, seed=5)
     svc = QueryService(cat, mesh=None, max_concurrency=1,
@@ -285,7 +285,7 @@ def test_config_template_loads_and_covers_every_setting():
     import dataclasses
     import os
 
-    from tiflash_tpu.runtime.settings import Settings
+    from tiflash_jax.runtime.settings import Settings
 
     path = os.path.join(os.path.dirname(__file__), "..",
                         "etc", "config-template.toml")

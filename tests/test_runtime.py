@@ -6,16 +6,16 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh
 
-import tiflash_tpu.core.dtypes as dt
-from tiflash_tpu.expr.nodes import col
-from tiflash_tpu.ops.aggregate import AggDesc
-from tiflash_tpu.plan import nodes as P
-from tiflash_tpu.plan.distribute import shuffle_join, split_aggregation
-from tiflash_tpu.runtime.executor import QueryRunner, enumerate_plan, run_query
-from tiflash_tpu.runtime.failpoint import FailPoint, FailPointError, fail_point
-from tiflash_tpu.runtime.metrics import METRICS
-from tiflash_tpu.runtime.settings import Settings
-from tiflash_tpu.testing import oracle as O
+import tiflash_jax.core.dtypes as dt
+from tiflash_jax.expr.nodes import col
+from tiflash_jax.ops.aggregate import AggDesc
+from tiflash_jax.plan import nodes as P
+from tiflash_jax.plan.distribute import shuffle_join, split_aggregation
+from tiflash_jax.runtime.executor import QueryRunner, enumerate_plan, run_query
+from tiflash_jax.runtime.failpoint import FailPoint, FailPointError, fail_point
+from tiflash_jax.runtime.metrics import METRICS
+from tiflash_jax.runtime.settings import Settings
+from tiflash_jax.testing import oracle as O
 
 
 @pytest.fixture(autouse=True)
@@ -135,7 +135,7 @@ def test_enumerate_plan_matches_executor_ids():
     blocks = {"l": O.pytable_to_block(lt, ls), "r": O.pytable_to_block(rt, rs)}
     rng2 = np.random.default_rng(2)
     lt2 = {"k": lt["lk"], "v": lt["lv"]}
-    from tiflash_tpu.mpp.runner import compile_distributed, shard_catalog_blocks, ExchangeConfig
+    from tiflash_jax.mpp.runner import compile_distributed, shard_catalog_blocks, ExchangeConfig
 
     fn = compile_distributed(plan, mesh, cfg=ExchangeConfig(shuffle_factor=4.0))
     sharded = shard_catalog_blocks(blocks, mesh)
@@ -162,8 +162,8 @@ def test_summary_node_rows_explain_analyze():
 def test_explain_analyze_per_operator_times():
     """Per-node subtree/self timings (ExecutorStatisticsCollector.h:38
     analog, via subtree differencing — runtime/analyze.py)."""
-    from tiflash_tpu.runtime.analyze import explain_analyze, format_analyze
-    from tiflash_tpu.ops.sort import SortKey
+    from tiflash_jax.runtime.analyze import explain_analyze, format_analyze
+    from tiflash_jax.ops.sort import SortKey
 
     rng = np.random.default_rng(3)
     n = 4096
@@ -192,10 +192,10 @@ def test_explain_analyze_per_operator_times():
 def test_plan_chunk_rows_uses_real_row_width():
     """Chunk sizing must reflect actual column widths, not a flat
     bytes-per-row constant: a 2x-wider scan halves the chunk rows."""
-    import tiflash_tpu.core.dtypes as dt
-    from tiflash_tpu.plan import nodes as P
-    from tiflash_tpu.runtime.memory import plan_chunk_rows
-    from tiflash_tpu.testing import oracle as O
+    import tiflash_jax.core.dtypes as dt
+    from tiflash_jax.plan import nodes as P
+    from tiflash_jax.runtime.memory import plan_chunk_rows
+    from tiflash_jax.testing import oracle as O
     import numpy as np
 
     rng = np.random.default_rng(0)
@@ -221,12 +221,12 @@ def test_query_memory_scope_and_summary_fields():
     summary carries allocator peak/delta; CPU backends degrade to 0."""
     import numpy as np
 
-    import tiflash_tpu.core.dtypes as dt
-    from tiflash_tpu.ops.aggregate import AggDesc
-    from tiflash_tpu.plan import nodes as P
-    from tiflash_tpu.runtime.executor import QueryRunner
-    from tiflash_tpu.runtime.memory import QueryMemoryScope, device_memory_stats
-    from tiflash_tpu.testing import oracle as O
+    import tiflash_jax.core.dtypes as dt
+    from tiflash_jax.ops.aggregate import AggDesc
+    from tiflash_jax.plan import nodes as P
+    from tiflash_jax.runtime.executor import QueryRunner
+    from tiflash_jax.runtime.memory import QueryMemoryScope, device_memory_stats
+    from tiflash_jax.testing import oracle as O
 
     stats = device_memory_stats()
     assert isinstance(stats, dict)

@@ -18,12 +18,12 @@ the error wins over a clean result regardless of later operators.
 
 import pytest
 
-import tiflash_tpu.core.dtypes as dt
-from tiflash_tpu.expr.nodes import call, col, lit
-from tiflash_tpu.plan import nodes as P
-from tiflash_tpu.runtime.errors import RUNTIME_EVAL, EngineError
-from tiflash_tpu.runtime.executor import run_query
-from tiflash_tpu.testing import oracle as O
+import tiflash_jax.core.dtypes as dt
+from tiflash_jax.expr.nodes import call, col, lit
+from tiflash_jax.plan import nodes as P
+from tiflash_jax.runtime.errors import RUNTIME_EVAL, EngineError
+from tiflash_jax.runtime.executor import run_query
+from tiflash_jax.testing import oracle as O
 
 
 def _blocks(rows, schema):
@@ -123,9 +123,9 @@ def test_error_channel_distributed():
     import numpy as np
     from jax.sharding import Mesh
 
-    from tiflash_tpu.mpp.runner import (compile_distributed,
+    from tiflash_jax.mpp.runner import (compile_distributed,
                                         shard_catalog_blocks)
-    from tiflash_tpu.runtime.errors import (raise_runtime_errors,
+    from tiflash_jax.runtime.errors import (raise_runtime_errors,
                                             split_runtime_errors)
 
     devs = np.array(jax.devices()[:8])
@@ -148,7 +148,7 @@ def test_error_channel_distributed():
 def test_error_survives_downstream_operators():
     # a TopN after the projection must not swallow the flag: TiFlash
     # aborts the whole query even when LIMIT would drop the bad row
-    from tiflash_tpu.ops.sort import SortKey
+    from tiflash_jax.ops.sort import SortKey
 
     plan = P.TopN([SortKey("flag")], 1,
                   P.Projection(

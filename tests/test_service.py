@@ -7,14 +7,14 @@ import urllib.request
 import numpy as np
 import pytest
 
-import tiflash_tpu.core.dtypes as dt
-from tiflash_tpu.bench.tpch_queries import q1_plan, q3_plan
-from tiflash_tpu.mpp.service import QueryService, serve_background
-from tiflash_tpu.plan import serde
-from tiflash_tpu.plan.compiler import compile_fragment
-from tiflash_tpu.runtime.failpoint import FailPoint
-from tiflash_tpu.storage.tpch import generate_tpch
-from tiflash_tpu.testing import oracle as O
+import tiflash_jax.core.dtypes as dt
+from tiflash_jax.bench.tpch_queries import q1_plan, q3_plan
+from tiflash_jax.mpp.service import QueryService, serve_background
+from tiflash_jax.plan import serde
+from tiflash_jax.plan.compiler import compile_fragment
+from tiflash_jax.runtime.failpoint import FailPoint
+from tiflash_jax.storage.tpch import generate_tpch
+from tiflash_jax.testing import oracle as O
 
 
 @pytest.fixture(scope="module")
@@ -136,9 +136,9 @@ def test_service_distributed_mesh():
     import numpy as np
     from jax.sharding import Mesh
 
-    from tiflash_tpu.mpp.service import QueryService, serve_background
-    from tiflash_tpu.plan.auto import distribute_plan
-    from tiflash_tpu.storage.tpch import generate_tpch
+    from tiflash_jax.mpp.service import QueryService, serve_background
+    from tiflash_jax.plan.auto import distribute_plan
+    from tiflash_jax.storage.tpch import generate_tpch
 
     cat2 = generate_tpch(sf=0.001, seed=9)
     mesh = Mesh(np.array(jax.devices()[:8]), ("d",))
@@ -162,13 +162,13 @@ def test_error_codes(server):
                        {"plan": {"node": "TableScan", "table": "nope"}})
     assert code in (400, 500)
     assert "code" in resp and "code_name" in resp
-    from tiflash_tpu.runtime import errors as E
+    from tiflash_jax.runtime import errors as E
 
     assert resp["code"] in (E.UNKNOWN_TABLE, E.UNKNOWN_COLUMN, E.BAD_PLAN,
                             E.INTERNAL)
     # classification unit checks
-    from tiflash_tpu.runtime.cancel import QueryCancelled
-    from tiflash_tpu.runtime.memory import MemoryLimitError
+    from tiflash_jax.runtime.cancel import QueryCancelled
+    from tiflash_jax.runtime.memory import MemoryLimitError
 
     assert E.classify(QueryCancelled("x")) == E.CANCELLED
     assert E.classify(MemoryLimitError("x")) == E.MEMORY_LIMIT
@@ -234,14 +234,14 @@ def test_metrics_families_after_spilled_and_distributed_query(server):
     import numpy as np
 
     import jax
-    import tiflash_tpu.core.dtypes as dt
-    from tiflash_tpu.ops.aggregate import AggDesc
-    from tiflash_tpu.ops.sort import SortKey
-    from tiflash_tpu.ops.window import WindowDesc
-    from tiflash_tpu.plan import nodes as P
-    from tiflash_tpu.runtime.executor import run_query
-    from tiflash_tpu.runtime.settings import Settings
-    from tiflash_tpu.testing import oracle as O
+    import tiflash_jax.core.dtypes as dt
+    from tiflash_jax.ops.aggregate import AggDesc
+    from tiflash_jax.ops.sort import SortKey
+    from tiflash_jax.ops.window import WindowDesc
+    from tiflash_jax.plan import nodes as P
+    from tiflash_jax.runtime.executor import run_query
+    from tiflash_jax.runtime.settings import Settings
+    from tiflash_jax.testing import oracle as O
 
     # spilled chunked aggregation (native spiller files)
     import tempfile
@@ -262,9 +262,9 @@ def test_metrics_families_after_spilled_and_distributed_query(server):
     # distributed laned window on the 8-device mesh
     from jax.sharding import Mesh
 
-    from tiflash_tpu.mpp.runner import (compile_distributed,
+    from tiflash_jax.mpp.runner import (compile_distributed,
                                         shard_catalog_blocks)
-    from tiflash_tpu.plan.auto import distribute_plan
+    from tiflash_jax.plan.auto import distribute_plan
 
     mesh = Mesh(np.array(jax.devices()[:8]), ("d",))
     wt = {"w": O.pytable_to_block(

@@ -1,6 +1,6 @@
 """approx_count_distinct — KMV mergeable sketch (the
 AggregateFunctions/AggregateFunctionUniq.h HLL-family analog, redesigned
-scatter-free for TPU; see ops/sketch.py)."""
+scatter-free; see ops/sketch.py)."""
 
 import math
 
@@ -10,12 +10,12 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-import tiflash_tpu.core.dtypes as dt
-from tiflash_tpu.core.block import Block, Column
-from tiflash_tpu.ops.aggregate import AggDesc, hash_aggregate
-from tiflash_tpu.ops.sketch import SKETCH_K, kmv_candidates, kmv_estimate
-from tiflash_tpu.plan import nodes as P
-from tiflash_tpu.testing import oracle as O
+import tiflash_jax.core.dtypes as dt
+from tiflash_jax.core.block import Block, Column
+from tiflash_jax.ops.aggregate import AggDesc, hash_aggregate
+from tiflash_jax.ops.sketch import SKETCH_K, kmv_candidates, kmv_estimate
+from tiflash_jax.plan import nodes as P
+from tiflash_jax.testing import oracle as O
 
 
 def make_block(values, nulls=()):
@@ -97,10 +97,10 @@ def test_distributed_sketch_scalar(mesh):
     """Pure-scalar approx over a mesh: k-row sketch exchange, final
     re-sketch.  Must match the single-device estimate exactly (the sketch
     is deterministic) and the truth within tolerance."""
-    from tiflash_tpu.mpp.runner import (
+    from tiflash_jax.mpp.runner import (
         collect_result, compile_distributed, shard_catalog_blocks,
     )
-    from tiflash_tpu.plan.distribute import split_aggregation
+    from tiflash_jax.plan.distribute import split_aggregation
 
     rng = np.random.default_rng(17)
     vals = rng.integers(0, 60_000, 200_000)
@@ -117,10 +117,10 @@ def test_distributed_sketch_scalar(mesh):
 
 
 def test_distributed_grouped_approx_colocates(mesh):
-    from tiflash_tpu.mpp.runner import (
+    from tiflash_jax.mpp.runner import (
         collect_result, compile_distributed, shard_catalog_blocks,
     )
-    from tiflash_tpu.plan.distribute import split_aggregation
+    from tiflash_jax.plan.distribute import split_aggregation
 
     rng = np.random.default_rng(19)
     n = 4096
@@ -128,7 +128,7 @@ def test_distributed_grouped_approx_colocates(mesh):
              "x": rng.integers(0, 40, n).tolist()}
     schema = {"g": dt.INT32, "x": dt.INT64}
     blocks = {"t": O.pytable_to_block(table, schema)}
-    from tiflash_tpu.mpp.runner import ExchangeConfig
+    from tiflash_jax.mpp.runner import ExchangeConfig
 
     plan = split_aggregation(["g"], [AggDesc("approx_count_distinct", "x", "d")],
                              P.TableScan("t"))

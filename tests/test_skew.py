@@ -8,16 +8,16 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh
 
-import tiflash_tpu.core.dtypes as dt
-from tiflash_tpu.exchange.skew import concat_blocks, detect_hot_keys
-from tiflash_tpu.mpp.runner import (
+import tiflash_jax.core.dtypes as dt
+from tiflash_jax.exchange.skew import concat_blocks, detect_hot_keys
+from tiflash_jax.mpp.runner import (
     ExchangeConfig,
     collect_result,
     compile_distributed,
     shard_catalog_blocks,
 )
-from tiflash_tpu.plan import nodes as P
-from tiflash_tpu.testing import oracle as O
+from tiflash_jax.plan import nodes as P
+from tiflash_jax.testing import oracle as O
 
 
 @pytest.fixture(scope="module")
@@ -64,7 +64,7 @@ def test_skew_join_avoids_shuffle_overflow(mesh):
     """With 60% of rows on one key, a plain hash shuffle with factor ~1
     must overflow one partition; the skew-aware join must NOT (hot rows
     never enter the exchange)."""
-    from tiflash_tpu.plan.distribute import shuffle_join
+    from tiflash_jax.plan.distribute import shuffle_join
 
     lt, rt, blocks = skewed_tables(mesh, nl=1600)
     plain = shuffle_join(
@@ -108,7 +108,7 @@ def test_detect_hot_keys_finds_heavy_hitter(mesh):
 
 
 def test_concat_blocks():
-    import tiflash_tpu.core.dtypes as dtt
+    import tiflash_jax.core.dtypes as dtt
 
     a = O.pytable_to_block({"x": [1, 2]}, {"x": dtt.INT64})
     b = O.pytable_to_block({"x": [3, 4, 5]}, {"x": dtt.INT64}).and_sel(

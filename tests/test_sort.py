@@ -6,9 +6,9 @@ Role analog: ``Flash/tests/gtest_topn_executor.cpp``.
 import numpy as np
 import pytest
 
-import tiflash_tpu.core.dtypes as dt
-from tiflash_tpu.ops.sort import SortKey, limit_block, sort_block, top_n
-from tiflash_tpu.testing import oracle as O
+import tiflash_jax.core.dtypes as dt
+from tiflash_jax.ops.sort import SortKey, limit_block, sort_block, top_n
+from tiflash_jax.testing import oracle as O
 
 
 SCHEMA = {
@@ -95,7 +95,7 @@ def test_top_n_tiled_large_input():
     """Large-n tiled top-N path (per-tile sort + candidate merge) parity."""
     import jax.numpy as jnp
 
-    from tiflash_tpu.ops.sort import SortKey, top_n
+    from tiflash_jax.ops.sort import SortKey, top_n
 
     rng = np.random.default_rng(33)
     schema = {"a": dt.INT64.with_nullable(True), "b": dt.FLOAT64,
@@ -117,7 +117,7 @@ def test_top_n_tiled_more_limit_than_live():
     """Tiled path when the limit exceeds the live row count."""
     import jax.numpy as jnp
 
-    from tiflash_tpu.ops.sort import SortKey, top_n
+    from tiflash_jax.ops.sort import SortKey, top_n
 
     rng = np.random.default_rng(34)
     schema = {"a": dt.INT64, "v": dt.INT64}
@@ -139,9 +139,9 @@ def test_desc_sort_places_nulls_last_by_default():
     (engine used nulls-first regardless of direction)."""
     import numpy as np
 
-    import tiflash_tpu.core.dtypes as dt
-    from tiflash_tpu.ops.sort import SortKey, sort_block, top_n
-    from tiflash_tpu.testing import oracle as O
+    import tiflash_jax.core.dtypes as dt
+    from tiflash_jax.ops.sort import SortKey, sort_block, top_n
+    from tiflash_jax.testing import oracle as O
 
     pt = {"x": [3, None, 1, None, 2], "id": [0, 1, 2, 3, 4]}
     sch = {"x": dt.INT64.with_nullable(True), "id": dt.INT64}
@@ -165,9 +165,9 @@ def test_topk_tiled_fast_path_matches_full_sort():
     rows, and >2-level cascades included."""
     import numpy as np
 
-    import tiflash_tpu.core.dtypes as dt
-    from tiflash_tpu.core.block import Block, column_from_numpy
-    from tiflash_tpu.ops.sort import SortKey, sort_block, top_n
+    import tiflash_jax.core.dtypes as dt
+    from tiflash_jax.core.block import Block, column_from_numpy
+    from tiflash_jax.ops.sort import SortKey, sort_block, top_n
 
     rng = np.random.default_rng(11)
     n = 40_000  # > 4 * TILE -> tiled path; cascade reduces 40000 -> ~1900

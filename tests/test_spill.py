@@ -7,7 +7,7 @@ import pytest
 
 
 def test_spiller_roundtrip_all_dtypes(tmp_path):
-    from tiflash_tpu.runtime.spill import Spiller
+    from tiflash_jax.runtime.spill import Spiller
 
     rng = np.random.default_rng(0)
     arrays = [
@@ -33,7 +33,7 @@ def test_spiller_roundtrip_all_dtypes(tmp_path):
 def test_spiller_detects_corruption(tmp_path):
     import glob
 
-    from tiflash_tpu.runtime.spill import Spiller
+    from tiflash_jax.runtime.spill import Spiller
 
     sp = Spiller(str(tmp_path / "c"))
     a = np.arange(50_000, dtype=np.int64)
@@ -51,7 +51,7 @@ def test_spiller_detects_corruption(tmp_path):
 def test_spiller_removes_files_on_close(tmp_path):
     import glob
 
-    from tiflash_tpu.runtime.spill import Spiller
+    from tiflash_jax.runtime.spill import Spiller
 
     d = str(tmp_path / "rm")
     sp = Spiller(d)
@@ -63,11 +63,11 @@ def test_spiller_removes_files_on_close(tmp_path):
 
 
 def _grace_setup():
-    import tiflash_tpu.core.dtypes as dt
-    from tiflash_tpu.expr.nodes import col
-    from tiflash_tpu.ops.aggregate import AggDesc
-    from tiflash_tpu.plan import nodes as P
-    from tiflash_tpu.testing import oracle as O
+    import tiflash_jax.core.dtypes as dt
+    from tiflash_jax.expr.nodes import col
+    from tiflash_jax.ops.aggregate import AggDesc
+    from tiflash_jax.plan import nodes as P
+    from tiflash_jax.testing import oracle as O
 
     rng = np.random.default_rng(17)
     n, m = 6000, 900
@@ -78,8 +78,8 @@ def _grace_setup():
           "w": [None if rng.random() < 0.1 else int(rng.integers(0, 50))
                 for _ in range(m)]}
     plan = P.TopN(
-        [__import__("tiflash_tpu.ops.sort", fromlist=["SortKey"]).SortKey("s", desc=True),
-         __import__("tiflash_tpu.ops.sort", fromlist=["SortKey"]).SortKey("fk")],
+        [__import__("tiflash_jax.ops.sort", fromlist=["SortKey"]).SortKey("s", desc=True),
+         __import__("tiflash_jax.ops.sort", fromlist=["SortKey"]).SortKey("fk")],
         7,
         P.Aggregation(
             ["fk"], [AggDesc("sum", "w", "s")],
@@ -93,8 +93,8 @@ def _grace_setup():
 
 
 def test_grace_join_with_disk_spill_matches_in_ram(tmp_path):
-    from tiflash_tpu.runtime.outofcore import run_grace_join
-    from tiflash_tpu.testing import oracle as O
+    from tiflash_jax.runtime.outofcore import run_grace_join
+    from tiflash_jax.testing import oracle as O
 
     plan, tables, _ = _grace_setup()
     budget = 400_000  # force several partitions
@@ -108,9 +108,9 @@ def test_grace_join_with_disk_spill_matches_in_ram(tmp_path):
 
 def test_runner_spill_dir_setting(tmp_path):
     """QueryRunner routes out-of-core staging through spill_dir."""
-    from tiflash_tpu.runtime.executor import QueryRunner
-    from tiflash_tpu.runtime.settings import Settings
-    from tiflash_tpu.testing import oracle as O
+    from tiflash_jax.runtime.executor import QueryRunner
+    from tiflash_jax.runtime.settings import Settings
+    from tiflash_jax.testing import oracle as O
 
     plan, tables, _ = _grace_setup()
     s = Settings(max_bytes_per_device=400_000,
@@ -127,9 +127,9 @@ def test_runner_spill_dir_setting(tmp_path):
 def test_per_operator_external_join_threshold():
     """max_bytes_before_external_join (Settings.h:321) forces the grace
     path even when the global device quota is satisfied."""
-    from tiflash_tpu.runtime.executor import QueryRunner
-    from tiflash_tpu.runtime.settings import Settings
-    from tiflash_tpu.testing import oracle as O
+    from tiflash_jax.runtime.executor import QueryRunner
+    from tiflash_jax.runtime.settings import Settings
+    from tiflash_jax.testing import oracle as O
 
     plan, tables, _ = _grace_setup()
     # no global quota; the threshold compares against the JOIN's own
@@ -146,15 +146,15 @@ def test_per_operator_external_join_threshold():
 def test_per_operator_external_group_by_threshold():
     import numpy as np
 
-    from tiflash_tpu.core import dtypes as dt
-    from tiflash_tpu.plan import nodes as P
-    from tiflash_tpu.runtime.executor import QueryRunner
-    from tiflash_tpu.runtime.settings import Settings
-    from tiflash_tpu.testing import oracle as O
+    from tiflash_jax.core import dtypes as dt
+    from tiflash_jax.plan import nodes as P
+    from tiflash_jax.runtime.executor import QueryRunner
+    from tiflash_jax.runtime.settings import Settings
+    from tiflash_jax.testing import oracle as O
 
     rng = np.random.default_rng(7)
     n = 60_000
-    from tiflash_tpu.testing import oracle as O2
+    from tiflash_jax.testing import oracle as O2
     sch = {"g": dt.INT64, "v": dt.INT64}
     pt = O2.random_pytable(rng, n, sch, null_prob=0.0, int_range=(-100, 100))
     pt["g"] = [abs(x) % 8 for x in pt["g"]]
@@ -177,12 +177,12 @@ def test_bucketed_final_merge_parity(monkeypatch):
     in-memory result — the SF10 high-cardinality rehearsal path."""
     import numpy as np
 
-    from tiflash_tpu.core import dtypes as dt
-    from tiflash_tpu.plan import nodes as P
-    from tiflash_tpu.runtime import outofcore
-    from tiflash_tpu.runtime.executor import QueryRunner
-    from tiflash_tpu.runtime.settings import Settings
-    from tiflash_tpu.testing import oracle as O
+    from tiflash_jax.core import dtypes as dt
+    from tiflash_jax.plan import nodes as P
+    from tiflash_jax.runtime import outofcore
+    from tiflash_jax.runtime.executor import QueryRunner
+    from tiflash_jax.runtime.settings import Settings
+    from tiflash_jax.testing import oracle as O
 
     rng = np.random.default_rng(11)
     n = 60_000
@@ -215,13 +215,13 @@ def test_final_merge_compile_failure_ladder(monkeypatch):
     (the engineering-around-the-SIGSEGV path, VERDICT r4 item 1)."""
     import numpy as np
 
-    from tiflash_tpu.core import dtypes as dt
-    from tiflash_tpu.plan import nodes as P
-    from tiflash_tpu.runtime import outofcore
-    from tiflash_tpu.runtime.executor import QueryRunner
-    from tiflash_tpu.runtime.failpoint import FailPoint
-    from tiflash_tpu.runtime.settings import Settings
-    from tiflash_tpu.testing import oracle as O
+    from tiflash_jax.core import dtypes as dt
+    from tiflash_jax.plan import nodes as P
+    from tiflash_jax.runtime import outofcore
+    from tiflash_jax.runtime.executor import QueryRunner
+    from tiflash_jax.runtime.failpoint import FailPoint
+    from tiflash_jax.runtime.settings import Settings
+    from tiflash_jax.testing import oracle as O
 
     rng = np.random.default_rng(13)
     n = 60_000

@@ -12,11 +12,11 @@ import time
 
 import pytest
 
-from tiflash_tpu.bench.tpch_queries import q1_plan
-from tiflash_tpu.mpp.service import QueryService
-from tiflash_tpu.plan import serde
-from tiflash_tpu.runtime.syncpoint import SyncPoint, sync_point
-from tiflash_tpu.storage.tpch import generate_tpch
+from tiflash_jax.bench.tpch_queries import q1_plan
+from tiflash_jax.mpp.service import QueryService
+from tiflash_jax.plan import serde
+from tiflash_jax.runtime.syncpoint import SyncPoint, sync_point
+from tiflash_jax.storage.tpch import generate_tpch
 
 
 @pytest.fixture(scope="module")
@@ -81,7 +81,7 @@ def test_cancel_while_running_deterministic(cat):
         svc.cancel(qs[-1]["id"])
         sp.release()
         t.join(timeout=60)
-    from tiflash_tpu.runtime.cancel import QueryCancelled
+    from tiflash_jax.runtime.cancel import QueryCancelled
 
     assert isinstance(results["q"], QueryCancelled)
     assert svc.queries()["queries"][-1]["state"] == "CANCELLED"
@@ -106,7 +106,7 @@ def test_cancel_while_queued_deterministic(cat):
         assert qs[-1]["state"] == "QUEUED"
         svc.cancel(qs[-1]["id"])
         tb.join(timeout=30)
-        from tiflash_tpu.runtime.cancel import QueryCancelled
+        from tiflash_jax.runtime.cancel import QueryCancelled
 
         assert isinstance(results["b"], QueryCancelled)
         assert svc.queries()["queries"][-1]["state"] == "CANCELLED"

@@ -9,12 +9,12 @@ convert through it.  Reference: per-request tz in
 import dataclasses
 import datetime
 
-import tiflash_tpu.core.dtypes as dt
-from tiflash_tpu.core.block import Block
-from tiflash_tpu.expr.compile import (evaluate_expr, parse_tz_offset_us,
+import tiflash_jax.core.dtypes as dt
+from tiflash_jax.core.block import Block
+from tiflash_jax.expr.compile import (evaluate_expr, parse_tz_offset_us,
                                       query_timezone)
-from tiflash_tpu.expr.nodes import call, col, lit
-from tiflash_tpu.testing import oracle as O
+from tiflash_jax.expr.nodes import call, col, lit
+from tiflash_jax.testing import oracle as O
 
 TS = dataclasses.replace(dt.DATETIME, tz_aware=True)
 
@@ -65,9 +65,9 @@ def test_unix_timestamp_roundtrip_through_tz():
 
 
 def test_executor_time_zone_setting():
-    from tiflash_tpu.plan import nodes as P
-    from tiflash_tpu.runtime.executor import run_query
-    from tiflash_tpu.runtime.settings import Settings
+    from tiflash_jax.plan import nodes as P
+    from tiflash_jax.runtime.executor import run_query
+    from tiflash_jax.runtime.settings import Settings
 
     blk = _ts_block(["2000-01-01 10:00:00"])
     plan = P.Projection({"h": call("hour", col("ts"))}, P.TableScan("t"))

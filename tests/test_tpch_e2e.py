@@ -6,11 +6,11 @@ output equality (BASELINE.md parity oracle), here at tiny SF on CPU.
 
 import pytest
 
-from tiflash_tpu.bench.tpch_queries import q1_plan, q3_plan, q6_plan, sort_topn_plan
-from tiflash_tpu.plan.compiler import compile_fragment
-from tiflash_tpu.storage.tpch import generate_tpch
-from tiflash_tpu.testing import oracle as O
-from tiflash_tpu.testing.plan_oracle import execute_plan_oracle
+from tiflash_jax.bench.tpch_queries import q1_plan, q3_plan, q6_plan, sort_topn_plan
+from tiflash_jax.plan.compiler import compile_fragment
+from tiflash_jax.storage.tpch import generate_tpch
+from tiflash_jax.testing import oracle as O
+from tiflash_jax.testing.plan_oracle import execute_plan_oracle
 
 
 @pytest.fixture(scope="module")
@@ -58,9 +58,9 @@ def test_plan_pretty(data):
 
 def test_union_partition_table_scan(data):
     """UNION ALL of per-partition scans (PartitionTableScan analog)."""
-    import tiflash_tpu.plan.nodes as P
-    from tiflash_tpu.expr.nodes import col
-    from tiflash_tpu.ops.aggregate import AggDesc
+    import tiflash_jax.plan.nodes as P
+    from tiflash_jax.expr.nodes import col
+    from tiflash_jax.ops.aggregate import AggDesc
 
     blocks, pytables = data
     # simulate two partitions by scanning lineitem twice with different
@@ -80,7 +80,7 @@ def test_q3_rewrite_equivalence(data):
     got_raw, ov2 = compile_fragment(q3_plan(rewrite=False))(blocks)
     for v in list(ov1.values()) + list(ov2.values()):
         assert not bool(v)
-    from tiflash_tpu.testing import oracle as O
+    from tiflash_jax.testing import oracle as O
 
     O.assert_tables_equal(
         O.block_to_pytable(got_rw), O.block_to_pytable(got_raw), ordered=True

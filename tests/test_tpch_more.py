@@ -6,13 +6,13 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh
 
-from tiflash_tpu.bench import tpch_queries as Q
-from tiflash_tpu.plan.auto import distribute_plan
-from tiflash_tpu.plan.compiler import compile_fragment
-from tiflash_tpu.runtime.executor import run_query
-from tiflash_tpu.storage.tpch import generate_tpch
-from tiflash_tpu.testing import oracle as O
-from tiflash_tpu.testing.plan_oracle import execute_plan_oracle
+from tiflash_jax.bench import tpch_queries as Q
+from tiflash_jax.plan.auto import distribute_plan
+from tiflash_jax.plan.compiler import compile_fragment
+from tiflash_jax.runtime.executor import run_query
+from tiflash_jax.storage.tpch import generate_tpch
+from tiflash_jax.testing import oracle as O
+from tiflash_jax.testing.plan_oracle import execute_plan_oracle
 
 PLANS = {
     "q2": Q.q2_plan, "q4": Q.q4_plan, "q5": Q.q5_plan, "q7": Q.q7_plan,
@@ -61,7 +61,7 @@ def test_distributed(env, name):
 @pytest.mark.parametrize("name", list(PLANS))
 def test_single_chip_pruned(env, name):
     """Column pruning must not change any query's result."""
-    from tiflash_tpu.plan.rewrite import prune_columns
+    from tiflash_jax.plan.rewrite import prune_columns
 
     blocks, pytables, _, _ = env
     plan = PLANS[name]()

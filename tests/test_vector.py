@@ -4,7 +4,8 @@ Reference surface: vecL2Distance / vecCosineDistance /
 vecNegativeInnerProduct / vecL1Distance / vecL2Norm / vecDims sigs
 (/root/reference/dbms/src/Flash/Coprocessor/DAGUtils.cpp:92) and the
 vector-search path (VectorSearch/, Storages/DeltaMerge/Index/VectorIndex/)
-— here exact MXU brute force instead of an HNSW index (ops/vector.py).
+— here exact brute force (one matrix product) instead of an HNSW index
+(ops/vector.py).
 """
 
 import numpy as np
@@ -12,13 +13,13 @@ import pytest
 
 import jax.numpy as jnp
 
-import tiflash_tpu.core.dtypes as dt
-from tiflash_tpu.core.block import Block, column_from_numpy
-from tiflash_tpu.core.dtypes import TypeKind, Vector
-from tiflash_tpu.expr.nodes import call, col, lit
-from tiflash_tpu.expr.compile import evaluate_expr
-from tiflash_tpu.ops.vector import block_vector_search, vector_search
-from tiflash_tpu.testing import oracle as O
+import tiflash_jax.core.dtypes as dt
+from tiflash_jax.core.block import Block, column_from_numpy
+from tiflash_jax.core.dtypes import TypeKind, Vector
+from tiflash_jax.expr.nodes import call, col, lit
+from tiflash_jax.expr.compile import evaluate_expr
+from tiflash_jax.ops.vector import block_vector_search, vector_search
+from tiflash_jax.testing import oracle as O
 
 DIMS = 24
 SCHEMA = {
@@ -125,9 +126,9 @@ def test_vector_search_respects_sel_and_null(data):
 
 def test_ann_through_plan(data):
     """Single-query ANN as plan composition: Projection(distance) + TopN."""
-    import tiflash_tpu.plan.nodes as P
-    from tiflash_tpu.plan.compiler import compile_fragment
-    from tiflash_tpu.ops.sort import SortKey
+    import tiflash_jax.plan.nodes as P
+    from tiflash_jax.plan.compiler import compile_fragment
+    from tiflash_jax.ops.sort import SortKey
 
     table, block = data
     plan = P.TopN(
@@ -171,3 +172,29 @@ def test_vector_search_tiled_path_large_n():
         np.testing.assert_allclose(np.sort(dist[qi]), np.sort(ref[order]),
                                    rtol=2e-4, atol=2e-4)
         assert np.all(np.diff(dist[qi]) >= -1e-5)
+
+
+@pytest.mark.parametrize("metric", ["l2", "inner_product"])
+def test_vector_search_exact_ranking_vs_float64(metric):
+    """Rankings equal a float64 reference's: the k returned rows are the k
+    best by exact distance, up to ties within 1e-6 relative.  A reduced
+    precision product (TF32, the GPU's float32 default) fails this."""
+    rng = np.random.default_rng(5)
+    n, d, nq, k = 50_000, 128, 8, 100
+    # non-negative, uncentred vectors (as many embedding models emit):
+    # dense near-ties that a TF32 product reorders
+    x = rng.random(size=(n, d)).astype(np.float32)
+    q = rng.random(size=(nq, d)).astype(np.float32)
+    colv = column_from_numpy([tuple(r) for r in x], Vector(d))
+    dist, idx = vector_search(colv, jnp.asarray(q), k, metric=metric)
+    dist, idx = np.asarray(dist), np.asarray(idx)
+    x64, q64 = x.astype(np.float64), q.astype(np.float64)
+    for qi in range(nq):
+        if metric == "l2":
+            exact = np.sqrt(((x64 - q64[qi]) ** 2).sum(axis=1))
+        else:
+            exact = -(x64 @ q64[qi])
+        best = np.sort(exact)[:k]
+        got = exact[idx[qi]]
+        np.testing.assert_allclose(got, best, rtol=1e-6)
+        np.testing.assert_allclose(dist[qi], got, rtol=1e-5, atol=1e-5)

@@ -3,7 +3,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from tiflash_tpu.core import wide as W
+from tiflash_jax.core import wide as W
 
 
 def _rand_values(rng, n, mag):

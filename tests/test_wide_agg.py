@@ -17,19 +17,19 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh
 
-import tiflash_tpu.core.dtypes as dt
-from tiflash_tpu.core import wide as W
-from tiflash_tpu.core.block import Block, Column
-from tiflash_tpu.mpp.runner import (
+import tiflash_jax.core.dtypes as dt
+from tiflash_jax.core import wide as W
+from tiflash_jax.core.block import Block, Column
+from tiflash_jax.mpp.runner import (
     ExchangeConfig,
     collect_result,
     compile_distributed,
     shard_catalog_blocks,
 )
-from tiflash_tpu.ops.aggregate import AggDesc, agg_result_dtype, hash_aggregate
-from tiflash_tpu.plan import nodes as P
-from tiflash_tpu.plan.distribute import split_aggregation
-from tiflash_tpu.testing import oracle as O
+from tiflash_jax.ops.aggregate import AggDesc, agg_result_dtype, hash_aggregate
+from tiflash_jax.plan import nodes as P
+from tiflash_jax.plan.distribute import split_aggregation
+from tiflash_jax.testing import oracle as O
 
 
 def _mk_table(rng, n, lo, hi, scale=2, null_prob=0.0, nkeys=7):
@@ -46,7 +46,7 @@ def _mk_table(rng, n, lo, hi, scale=2, null_prob=0.0, nkeys=7):
         "v": [D(m).scaleb(-scale) if ok else None
               for m, ok in zip(mant, valid)],
     }
-    from tiflash_tpu.core.block import column_from_numpy
+    from tiflash_jax.core.block import column_from_numpy
 
     vcol = column_from_numpy(mant, dtype, valid if null_prob > 0 else None)
     kcol = column_from_numpy(keys, dt.INT32)
@@ -109,7 +109,7 @@ def test_sum_filtered_nullable():
     rng = np.random.default_rng(13)
     t, b, _ = _mk_table(rng, 300, 10 ** 16, 9 * 10 ** 17, null_prob=0.3)
     flt = [bool(rng.integers(0, 2)) for _ in range(300)]
-    from tiflash_tpu.core.block import column_from_numpy
+    from tiflash_jax.core.block import column_from_numpy
 
     b = b.with_column("f", column_from_numpy(flt, dt.BOOL))
     t["f"] = flt
@@ -134,7 +134,7 @@ def _wide_input_block(rng, n, nkeys=5):
     hi = jnp.asarray([m // W.W18 for m in mants], dtype=jnp.int64)
     lo = jnp.asarray([m % W.W18 for m in mants], dtype=jnp.int64)
     keys = [int(rng.integers(0, nkeys)) for _ in range(n)]
-    from tiflash_tpu.core.block import column_from_numpy
+    from tiflash_jax.core.block import column_from_numpy
 
     vcol = Column(W.make_wide(hi, lo), None, dt.Decimal(38, 2, nullable=True))
     b = Block.from_dict({"k": column_from_numpy(keys, dt.INT32), "v": vcol})
@@ -180,7 +180,7 @@ def test_distributed_wide_sum_avg(mesh):
     mant = [int(rng.integers(10 ** 16, 9 * 10 ** 17)) *
             (1 if rng.random() < 0.5 else -1) for _ in range(n)]
     keys = [int(rng.integers(0, 11)) for _ in range(n)]
-    from tiflash_tpu.core.block import column_from_numpy
+    from tiflash_jax.core.block import column_from_numpy
 
     sch_v = dt.Decimal(18, 2)
     b = Block.from_dict({
@@ -213,7 +213,7 @@ def test_distributed_wide_sum_avg(mesh):
 
 def test_wide_expr_compare_and_arith():
     """Post-aggregation scalar math on wide columns: mul, div, cmp."""
-    from tiflash_tpu.expr.functions import get_function
+    from tiflash_jax.expr.functions import get_function
 
     rng = np.random.default_rng(18)
     mants = [int(rng.integers(10 ** 11, 10 ** 15)) *
@@ -257,10 +257,10 @@ def test_expression_stats_keep_sums_narrow():
     """Interval propagation through projections: revenue-style expression
     sums carry provable bounds and stay 1-D narrow-stored (no two-limb
     digit path) — the Q1/Q3 fast path."""
-    from tiflash_tpu.expr.nodes import col, lit
-    from tiflash_tpu.plan import nodes as P
-    from tiflash_tpu.plan.compiler import compile_fragment
-    from tiflash_tpu.core.block import column_from_numpy
+    from tiflash_jax.expr.nodes import col, lit
+    from tiflash_jax.plan import nodes as P
+    from tiflash_jax.plan.compiler import compile_fragment
+    from tiflash_jax.core.block import column_from_numpy
 
     rng = np.random.default_rng(30)
     n = 500

@@ -6,10 +6,10 @@ Role analog: ``Flash/tests/gtest_window_executor.cpp``.
 import numpy as np
 import pytest
 
-import tiflash_tpu.core.dtypes as dt
-from tiflash_tpu.ops.sort import SortKey
-from tiflash_tpu.ops.window import WindowDesc, window_block
-from tiflash_tpu.testing import oracle as O
+import tiflash_jax.core.dtypes as dt
+from tiflash_jax.ops.sort import SortKey
+from tiflash_jax.ops.window import WindowDesc, window_block
+from tiflash_jax.testing import oracle as O
 
 SCHEMA = {
     "p": dt.INT32,
@@ -65,6 +65,49 @@ def test_running_aggregates():
     ])
 
 
+def _constant_cumulative_ops(jaxpr, dep_in) -> list:
+    """Cumulative ops (cumsum, cummax, ...) whose operand depends on no
+    input of ``jaxpr``."""
+    from jax.extend.core import ClosedJaxpr, Jaxpr, Var
+
+    dep = {v for v, d in zip(jaxpr.invars, dep_in) if d}
+    found = []
+    for eqn in jaxpr.eqns:
+        ins = [isinstance(a, Var) and a in dep for a in eqn.invars]
+        if eqn.primitive.name.startswith("cum") and not any(ins):
+            found.append(eqn.primitive.name)
+        for p in eqn.params.values():
+            sub = p.jaxpr if isinstance(p, ClosedJaxpr) else p
+            if isinstance(sub, Jaxpr):
+                sub_in = (ins if len(sub.invars) == len(ins)
+                          else [any(ins)] * len(sub.invars))
+                found += _constant_cumulative_ops(sub, sub_in)
+        if any(ins):
+            dep.update(eqn.outvars)
+    return found
+
+
+@pytest.mark.parametrize("funcs", [
+    [WindowDesc("row_number", "rn"), WindowDesc("sum", "rs", arg="v")],
+    [WindowDesc("count", "rc"), WindowDesc("avg", "fa", arg="v", frame=(2, 0))],
+    [WindowDesc("min", "fm", arg="v", frame=(2, 1))],
+])
+def test_no_cumulative_op_over_constants(funcs):
+    """Running counts of NULL-free rows are an iota, never a cumsum of a
+    constant: XLA's GPU compiler folds such a cumsum at compile time, in
+    time quadratic in the row count (minutes at a few million rows)."""
+    import jax
+
+    schema = {"p": dt.INT32, "o": dt.INT64, "v": dt.INT64}
+    table = O.random_pytable(np.random.default_rng(4), 64, schema,
+                             int_range=(0, 5))
+    block = O.pytable_to_block(table, schema)
+    closed = jax.make_jaxpr(
+        lambda b: window_block(b, ["p"], [SortKey("o")], funcs))(block)
+    assert _constant_cumulative_ops(
+        closed.jaxpr, [True] * len(closed.jaxpr.invars)) == []
+
+
 def test_window_desc_order():
     run([WindowDesc("row_number", "rn"), WindowDesc("sum", "rs", arg="d")],
         order_desc=True, seed=3)
@@ -91,11 +134,11 @@ def test_distributed_window():
     import jax
     from jax.sharding import Mesh
 
-    from tiflash_tpu.mpp.runner import (
+    from tiflash_jax.mpp.runner import (
         collect_result, compile_distributed, shard_catalog_blocks,
     )
-    from tiflash_tpu.plan import nodes as P
-    from tiflash_tpu.plan.distribute import partitioned_window
+    from tiflash_jax.plan import nodes as P
+    from tiflash_jax.plan.distribute import partitioned_window
 
     mesh = Mesh(np.array(jax.devices()[:8]), ("d",))
     rng = np.random.default_rng(6)

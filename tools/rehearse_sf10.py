@@ -1,11 +1,10 @@
-"""BASELINE config-5 rehearsal (VERDICT r2 item 3): Q3-shape join +
-high-cardinality group-by at SF10 on ONE real chip, each run twice —
+"""BASELINE config-5 rehearsal: Q3-shape join + high-cardinality
+group-by at SF10 on ONE card, each run twice —
 in-memory and FORCED through the out-of-core paths (grace hash join /
 group-hash partitioned aggregation + the native disk spiller) — with
 result parity asserted between the two.
 
-SF100 needs a multi-host mesh this environment doesn't have; SF10 is the
-largest single-chip scale and exercises the identical code paths the
+SF10 exercises the identical code paths the
 SF100 config would per host (grace partitioning, spill files, chunked
 re-aggregation).  The CPU-side composition of out-of-core x 8-device
 mesh is tests/test_outofcore_distributed.py.
@@ -26,13 +25,13 @@ import time
 import jax
 import jax.numpy as jnp
 
-import tiflash_tpu  # noqa: F401
-from tiflash_tpu.expr.nodes import col
-from tiflash_tpu.ops.aggregate import AggDesc
-from tiflash_tpu.plan import nodes as P
-from tiflash_tpu.runtime.executor import QueryRunner
-from tiflash_tpu.runtime.settings import Settings
-from tiflash_tpu.storage.tpch import generate_tpch
+import tiflash_jax  # noqa: F401
+from tiflash_jax.expr.nodes import col
+from tiflash_jax.ops.aggregate import AggDesc
+from tiflash_jax.plan import nodes as P
+from tiflash_jax.runtime.executor import QueryRunner
+from tiflash_jax.runtime.settings import Settings
+from tiflash_jax.storage.tpch import generate_tpch
 
 SF = float(sys.argv[1]) if len(sys.argv) > 1 else 10.0
 # optional phase subset, e.g. `rehearse_sf10.py 10 q3_grace,hc` — remote
@@ -100,8 +99,8 @@ def main():
     spill_dir = tempfile.mkdtemp(prefix="sf10_spill_")
 
     # ---- phase 1: Q3 shape ------------------------------------------
-    from tiflash_tpu.bench.tpch_queries import q3_plan
-    from tiflash_tpu.plan.auto import autosize_plan
+    from tiflash_jax.bench.tpch_queries import q3_plan
+    from tiflash_jax.plan.auto import autosize_plan
 
     cs_mem = None
     if "q3_mem" in PHASES:
